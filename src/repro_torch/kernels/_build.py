@@ -1,0 +1,96 @@
+"""Build the port's CUDA sources with `nvcc` and load them with ctypes.
+
+Each source under `<kernel>/csrc/*.cu` has a plain C entry point.  It is
+compiled once into a shared library under `build/kernels/` at the root
+of the checkout, named by a hash of the source and the flags, so an
+edited source rebuilds and an unchanged one loads from the cache.
+`build` starts one `nvcc` per missing library, all at once.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+HERE = Path(__file__).resolve().parent
+BUILD_DIR = HERE.parents[2] / "build" / "kernels"
+SOURCES = {"fused_band": HERE / "stencil" / "csrc" / "fused_band.cu"}
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+_c = ctypes
+# argument types of each library's C entry point
+SIGNATURES = {
+    "fused_band": ("fused_band_launch", [
+        _c.c_void_p, _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+        _c.c_void_p, _c.POINTER(_c.c_void_p), _c.c_int,
+        _c.POINTER(_c.c_void_p), _c.c_int, _c.c_void_p, _c.c_int64,
+        _c.c_int, _c.c_int64, _c.c_int, _c.c_int, _c.c_void_p]),
+}
+
+_LOCK = threading.Lock()
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the port's kernels")
+
+
+def library_path(name: str) -> Path:
+    key = hashlib.sha256(SOURCES[name].read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{key}.so"
+
+
+def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
+    """Compile every library in `names` that is not built yet, with one
+    `nvcc` per source running in parallel; returns the library paths.
+    The compiler's `-Xptxas -v` report lands beside each library."""
+    names = list(names)
+    paths = {n: library_path(n) for n in names}
+    todo = [n for n in names if not paths[n].exists()]
+    if not todo:
+        return paths
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs: List = []
+    for n in todo:
+        tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
+        log = open(paths[n].with_suffix(".log"), "w")
+        procs.append((n, tmp, log, subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])],
+            stdout=log, stderr=subprocess.STDOUT)))
+    failed = []
+    for n, tmp, log, proc in procs:
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            failed.append(f"{n}: nvcc exited {rc}, see "
+                          f"{paths[n].with_suffix('.log')}")
+        else:
+            os.replace(tmp, paths[n])   # atomic: concurrent builders agree
+    if failed:
+        raise RuntimeError("kernel build failed:\n  " + "\n  ".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, built at first use."""
+    with _LOCK:
+        if name not in _LOADED:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            fn_name, argtypes = SIGNATURES[name]
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _LOADED[name] = lib
+        return _LOADED[name]

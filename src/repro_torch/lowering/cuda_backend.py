@@ -1,0 +1,118 @@
+"""Fused band-kernel executor over the lowered IR.
+
+Port of `repro.lowering.pallas_backend` (`island_program`,
+`compile_pallas`).  A `LoweredPipeline` and an image shape compile into
+a chain of band-kernel launches, one per rate island
+(`lowering.islands.partition_islands`).  Islands hand off through
+boundary buffers kept on the device in each boundary stage's legalized
+container (`backends.store_dtype`), and outputs are dequantized to f64
+on return.  Everything is bit-identical to the reference's numpy oracle
+`repro.dsl.exec.run_fixed(backend="numpy")`.
+
+`compile_cuda(..., plain=False)` launches `kernels/stencil/csrc/
+fused_band.cu` on a CUDA device; ``plain=True`` runs the kernel's plain
+PyTorch version on the same encoded tables instead (the ``"torch"``
+backend of `dsl.exec.run_fixed`).  On a CPU device both run the plain
+version, because the kernel wrapper dispatches on the tensors' device.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.stencil.kernel import (EncodedProgram,
+                                                encode_program,
+                                                fused_pipeline,
+                                                fused_pipeline_reference)
+from repro_torch.lowering import backends as B
+from repro_torch.lowering.ir import LoweredPipeline, LoweringError
+from repro_torch.lowering.islands import Island, partition_islands
+
+
+def island_program(lp: LoweredPipeline, isl: Island) -> List[Dict]:
+    """Stage descriptors for one island, in the reference's order.
+
+    The same dicts as `repro.lowering.pallas_backend.island_program`
+    (geometry, stored container, input/output slots), with the
+    `LoweredStage` and the baked parameters in place of jnp closures:
+    `kernels.stencil.kernel.encode_program` turns them into tables."""
+    program = []
+    slot = {n: i for i, n in enumerate(isl.inputs)}
+    for n in isl.schedule.order:
+        ss = isl.schedule.stages[n]
+        ls = lp.stages[n]
+        d = dict(name=n, step=ss.step, lo=ss.lo, L=ss.L, H=ss.H, W=ss.W,
+                 dtype=B.store_dtype(ls), ls=ls)
+        if n in slot:
+            d.update(kind="input", in_slot=slot[n])
+        else:
+            d.update(kind="compute", params=lp.params)
+        program.append(d)
+    for out_slot, n in enumerate(isl.outputs):
+        for d in program:
+            if d["name"] == n:
+                d["out_slot"] = out_slot
+    return program
+
+
+def compile_cuda(lp: LoweredPipeline, device: DeviceLike = None,
+                 plain: bool = False) -> B.Executor:
+    """Shape-specialized executor: the island plan and its encoded
+    programs are built (and cached) per input shape on first call.
+
+    The executor takes an image as run_fixed does (array, tuple or
+    dict; numpy or torch; (H, W) or (B, H, W)) and returns
+    ``{output stage: f64 tensor on the device}``."""
+    dev = resolve_device(device)
+    outs = list(lp.pipeline.outputs)
+    order = B.needed_stages(lp, outs)
+    input_names = [n for n in order if lp.stages[n].stage.is_input]
+    kernel = fused_pipeline_reference if plain else fused_pipeline
+    cache: Dict[tuple, List[Tuple[Island, EncodedProgram]]] = {}
+    lock = threading.Lock()
+
+    def build(shape) -> List[Tuple[Island, EncodedProgram]]:
+        plan = partition_islands(lp, tuple(shape[-2:]))
+        return [(isl, encode_program(island_program(lp, isl)))
+                for isl in plan.islands]
+
+    def run(image) -> Dict[str, torch.Tensor]:
+        imgs, names = B.normalize_images(lp, image)
+        img_of = dict(zip(names, imgs))
+        buffers: Dict[str, torch.Tensor] = {}
+        shape = None
+        for n in input_names:
+            x = img_of[n]
+            x = torch.from_numpy(np.asarray(x)) \
+                if not isinstance(x, torch.Tensor) else x
+            if x.ndim not in (2, 3):
+                raise LoweringError(f"images must be (H, W) or (B, H, W); "
+                                    f"got {tuple(x.shape)}")
+            if shape is None:
+                shape = tuple(x.shape)
+            elif tuple(x.shape) != shape:
+                raise LoweringError(f"all pipeline inputs must share one "
+                                    f"shape; got {shape} vs "
+                                    f"{tuple(x.shape)}")
+            # container-dtype frames are pre-quantized stored tiles
+            # (zero-copy); others quantize from f64 on the device
+            x = x.to(dev, non_blocking=True)
+            buffers[n] = B.ingest_input(x.contiguous(), lp.stages[n])
+        batch = shape[0] if len(shape) == 3 else None
+        with lock:
+            if shape not in cache:
+                cache[shape] = build(shape)
+            compiled = cache[shape]
+        for isl, enc in compiled:
+            call = kernel(enc, isl.schedule.grid, batch)
+            for n, arr in zip(isl.outputs,
+                              call(*[buffers[n] for n in isl.inputs])):
+                buffers[n] = arr
+        return {n: B.dequant(lp.stages[n], buffers[n]) for n in outs}
+
+    run.lowered = lp
+    return run

@@ -1,0 +1,4 @@
+"""Batched serving over the port's executor (`pipeline_server`)."""
+from repro_torch.serve.pipeline_server import PipelineServer, serve_offline
+
+__all__ = ["PipelineServer", "serve_offline"]

@@ -40,3 +40,9 @@ else:
         suppress_health_check=[HealthCheck.too_slow],
     )
     settings.load_profile(os.environ.get("HYPOTHESIS_PROFILE", "repro"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips without one); run on the "
+        "card with `python -m pytest -m cuda tests/test_torch_cuda.py`")

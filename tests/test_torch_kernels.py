@@ -1,0 +1,181 @@
+"""The band kernel's plain version against the TPU kernel's band geometry.
+
+`fused_pipeline_reference` walks the encoded tables the CUDA kernel
+walks; here it must equal the reference's `eval_band` + `band_output`
+(`repro/kernels/stencil/kernel.py`), band by band and image by image,
+dtype included, on every rate island of the benchmarks and on a
+saturating phase plan.  The reference runs eagerly under a scoped
+``jax.enable_x64(True)``.
+"""
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.lowering as rl
+import repro_torch.lowering as pl_
+from repro.kernels.stencil.kernel import band_output, eval_band
+from repro.lowering import backends as rb
+from repro.lowering.pallas_backend import island_program as ref_program
+from repro_torch.core.fixedpoint import FixedPointType
+from repro_torch.dsl.builder import PipelineBuilder
+from repro_torch.kernels.stencil import kernel as K
+from repro_torch.lowering import backends as pb
+from repro_torch.lowering.cuda_backend import island_program
+from repro_torch.pipelines.types import types_from_data
+from test_torch_types import (BENCHES, frames, phase_plan, plan_design,
+                              ref_types, to_data)
+
+CU = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / \
+    "kernels" / "stencil" / "csrc" / "fused_band.cu"
+
+
+def _bands_equal(rlp, plp, image):
+    """Every island, every band, every image: plain version == eval_band.
+    Island inputs are the port's buffers (pipeline inputs ingested by
+    both sides and compared first)."""
+    shape = image.shape[-2:]
+    rplan = rl.partition_islands(rlp, shape)
+    pplan = pl_.partition_islands(plp, shape)
+    x = torch.from_numpy(image)
+    nb = image.shape[0]
+    buffers = {}
+    for n in pplan.inputs:
+        buffers[n] = pb.ingest_input(x, plp.stages[n])
+        want = np.asarray(rb.ingest_input(jnp.asarray(image), rlp.stages[n],
+                                          jnp))
+        np.testing.assert_array_equal(buffers[n].numpy(), want)
+        assert buffers[n].numpy().dtype == want.dtype
+    checked = 0
+    for risl, pisl in zip(rplan.islands, pplan.islands):
+        enc = K.encode_program(island_program(plp, pisl))
+        program = ref_program(rlp, risl)
+        ins = [buffers[n] for n in pisl.inputs]
+        ref_ins = [jnp.asarray(a.numpy()) for a in ins]
+        for i in range(pisl.schedule.grid):
+            got = K.band_outputs_reference(enc, ins, i)
+            for b in range(nb):
+                tiles = eval_band(
+                    program, i,
+                    lambda d, start, b=b: jax.lax.dynamic_slice_in_dim(
+                        ref_ins[d["in_slot"]][b], start, d["L"], 0))
+                for d in program:
+                    if d.get("out_slot") is None:
+                        continue
+                    want = np.asarray(band_output(d, tiles[d["name"]]))
+                    have = got[d["name"]][b].numpy()
+                    assert have.dtype == want.dtype, d["name"]
+                    np.testing.assert_array_equal(
+                        have, want, err_msg=f"island {pisl.idx} band {i} "
+                        f"image {b} stage {d['name']}")
+                    checked += 1
+        outs = K.fused_pipeline_reference(enc, pisl.schedule.grid,
+                                          batch=nb)(*ins)
+        buffers.update(zip(pisl.outputs, outs))
+    assert checked > 0
+
+
+CASES = [(b, (2, 48, 48)) for b in BENCHES] + \
+    [(BENCHES[2], (1, 47, 48)), (BENCHES[3], (1, 47, 48))]
+
+
+@pytest.mark.parametrize("bench,shape", CASES,
+                         ids=[f"{b[0]}-{'x'.join(map(str, s))}"
+                              for b, s in CASES])
+def test_plain_version_equals_eval_band(bench, shape):
+    name, ref_build, port_build, params = bench
+    rpipe = ref_build()
+    types = ref_types(rpipe)
+    with jax.enable_x64(True):
+        rlp = rl.lower(rpipe, types, params=params)
+        plp = pl_.lower(port_build(), types_from_data(to_data(types)),
+                        params=params)
+        _bands_equal(rlp, plp, frames(shape, 21))
+
+
+def test_plain_version_equals_eval_band_on_a_saturating_phase_plan():
+    name, ref_build, port_build, params = BENCHES[3]
+    plan = phase_plan(ref_build())
+    with jax.enable_x64(True):
+        rlp = rl.lower(ref_build(), plan)
+        plp = pl_.lower(port_build(), plan_design(plan))
+        assert plp.stages["resS"].phase is not None
+        _bands_equal(rlp, plp, frames((2, 48, 48), 3))
+
+
+def test_tables_and_codes_match_the_cuda_source():
+    src = CU.read_text()
+    block = src[src.index("// FIELDS-BEGIN"):src.index("// FIELDS-END")]
+    names = re.findall(r"F_([A-Z_]+)", block)
+    assert [n.lower() for n in names] == [f.lower() for f in K.FIELDS]
+
+    def enum(name):
+        body = re.search(r"enum %s \{(.*?)\};" % name, src, re.S).group(1)
+        return re.findall(r"\b([A-Z][A-Z_]+)\b", body)
+
+    def py(prefix, module=K):
+        return [k for _, k in sorted((v, k) for k, v in vars(module).items()
+                                     if k.startswith(prefix))]
+
+    assert enum("Op") == py("OP_")
+    assert enum("FConst") == py("FC_")
+    assert enum("Snap") == py("SNAP_", pb)
+    assert enum("Kind") == py("KIND_")
+
+
+def test_wrapper_runs_the_plain_version_on_cpu_tensors():
+    name, ref_build, port_build, params = BENCHES[0]
+    lp = pl_.lower(port_build(), types_from_data(to_data(
+        ref_types(ref_build()))), params=params)
+    isl = pl_.partition_islands(lp, (48, 48)).islands[0]
+    enc = K.encode_program(island_program(lp, isl))
+    x = pb.ingest_input(torch.from_numpy(frames((3, 48, 48), 2)),
+                        lp.stages["img"])
+    before = dict(K.LAUNCHES)
+    got = K.fused_pipeline(enc, isl.schedule.grid, batch=3)(x)
+    want = K.fused_pipeline_reference(enc, isl.schedule.grid, batch=3)(x)
+    assert K.LAUNCHES == before            # the CPU path launches nothing
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    one = K.fused_pipeline(enc, isl.schedule.grid)(x[1])
+    assert torch.equal(one[0], want[0][1])
+
+
+def test_rhe_shift_equals_the_reference():
+    rng = np.random.default_rng(0)
+    p = rng.integers(-(1 << 40), 1 << 40, 4096)
+    p[:8] = [-6, -5, -3, -2, 2, 3, 5, 6]      # exact ties
+    for t in range(-3, 9):
+        got = pb.rhe_shift(torch.from_numpy(p), t).numpy()
+        with jax.enable_x64(True):
+            want = np.asarray(rb.rhe_shift(jnp.asarray(p), t))
+        np.testing.assert_array_equal(got, want, err_msg=f"t={t}")
+
+
+def test_encoder_rejects_what_the_kernel_does_not_run():
+    p = PipelineBuilder("cube")
+    a = p.image("a", 0, 15)
+    p.define("c", a ** 3)
+    pipe = p.build()
+    types = {"a": FixedPointType(4, 0, False),
+             "c": FixedPointType(12, 0, False)}
+    lp = pl_.lower(pipe, types)
+    isl = pl_.partition_islands(lp, (8, 8)).islands[0]
+    with pytest.raises(pl_.LoweringError, match=r"x \*\* 3"):
+        K.encode_program(island_program(lp, isl))
+    # narrow-mode f32 expression stages are a later slice of the port
+    p = PipelineBuilder("sq")
+    a = p.image("a", 0, 15)
+    p.define("s", a * a + a)
+    pipe = p.build()
+    types = {"a": FixedPointType(4, 0, False),
+             "s": FixedPointType(8, 0, False)}
+    lp = pl_.lower(pipe, types, datapath="narrow")
+    assert lp.stages["s"].expr_dtype == "f32"
+    isl = pl_.partition_islands(lp, (8, 8)).islands[0]
+    with pytest.raises(pl_.LoweringError, match="f64 expression"):
+        K.encode_program(island_program(lp, isl))

@@ -5,13 +5,21 @@
 
 Phases (any failure raises, and the exit code is not 0):
 
-1. print the card's name and power limit; build the band kernel
-   (`src/repro_torch/kernels/stencil/csrc/fused_band.cu`) with nvcc;
-2. hold the kernel against its plain PyTorch version on the card, island
-   by island with `torch.equal`: usm, hcd and dus_ext at 1080x1920,
-   batch 2, and dus_ext at 96x96 on a saturating phase plan; check a
-   known answer (USM leaves a flat frame unchanged); time the kernel and
-   the plain version at the serving shape;
+1. print the card's name and power limit; build the four kernel
+   libraries (`fused_band.cu`, `stencil.cu`, `qmatmul.cu`, `qdq.cu` under
+   `src/repro_torch/kernels/*/csrc/`), one nvcc each, in parallel;
+2. hold the band kernel against its plain PyTorch version on the card,
+   island by island with `torch.equal`: usm, hcd and dus_ext at
+   1080x1920, batch 2, and dus_ext at 96x96 on a saturating phase plan;
+   check a known answer (USM leaves a flat frame unchanged); time the
+   kernel and the plain version at the serving shape;
+2b. the kernel library: hold each of its five kernels against its plain
+   version with `torch.equal` and time both (and `torch._int_mm` beside
+   `qmatmul_i32`) at the sizes users run: one 1080x1920 frame through a
+   Sobel and a 5x5 blur stencil, qwen3-4b's MLP up-projection over 4096
+   tokens, and the block quantization of one of its weights; then drive
+   the library's front ends once with their launch counts set to 0 just
+   before, and check what comes out;
 3. serve 16 USM 1080x1920 frames through the port's `PipelineServer` at
    batch 4 on the kernel, with launch counts set to 0 just before, and
    check every result against the plain executor on the card; serve
@@ -38,7 +46,14 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 # kernel's f64 and int64 work runs no faster, so ops / this rate stays a
 # lower bound on its time
 PEAK_OPS_PER_S = 67e12
+INT8_TC_OPS_PER_S = 1979e12    # int8 tensor cores, dense (data sheet)
 FRAME = (1080, 1920)
+# tokens x d_model x d_ff: qwen3-4b's MLP up-projection over 4096 tokens
+# (src/repro/configs/qwen3_4b.py:11-12)
+QWEN_UP = (4096, 2560, 9728)
+QDQ_BLOCK = 256
+SOBEL = [[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]]
+BLUR5 = [[a * b for b in (1, 4, 6, 4, 1)] for a in (1, 4, 6, 4, 1)]
 
 
 def card_line() -> str:
@@ -68,6 +83,223 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def cold_ms(fn, reps: int, flush) -> float:
+    """Mean device time of `fn` over `reps` launches, each timed alone
+    after writing `flush` evicted its inputs from the 50 MB L2.  `flush`
+    is large (1 GiB, about 0.3 ms to write) so that the host has queued
+    `fn`'s launches before the device reaches the start event: the time
+    is the device's, not the wrapper's Python."""
+    import torch
+    fn()
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        pairs.append((start, stop))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def least_ms(moved: int, op_counts) -> tuple:
+    """The bound: the larger of the bytes time and the operations time
+    (each (count, peak rate) pair at its own rate), and which it is."""
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = sum(n / rate for n, rate in op_counts) * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def same(label, got, want) -> float:
+    """Kernel == plain version (values, dtype, shape); max |error|."""
+    import torch
+    err = 0.0
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, label
+        err = max(err, float((g.double() - w.double()).abs().max()))
+        if not torch.equal(g, w):
+            raise AssertionError(f"{label}: kernel != plain version "
+                                 f"(max_abs_err {err})")
+    return err
+
+
+def kernel_library(dev, card):
+    """Phase 2b (see the module docstring).  Returns the result line's
+    rows of the five library kernels."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.fixedpoint import FixedPointType
+    from repro_torch.kernels.qdq import kernel as QD
+    from repro_torch.kernels.qdq import ops as DO
+    from repro_torch.kernels.qmatmul import kernel as QM
+    from repro_torch.kernels.qmatmul import ops as QO
+    from repro_torch.kernels.stencil import kernel as K
+    from repro_torch.kernels.stencil import ops as SO
+
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows = {}
+
+    def measure(name, label, kern, plain, moved, ops, reps=(50, 10),
+                library=None):
+        """Compare, time and print one kernel; keep the row of the first
+        `label` of each kernel for the result line."""
+        err = same(f"{name} {label}", kern(), plain())
+        torch.cuda.synchronize()
+        ms = cold_ms(kern, reps[0], flush)
+        plain_ms = cold_ms(plain, reps[1], flush)
+        lib_ms = None if library is None else cold_ms(library, reps[0],
+                                                      flush)
+        bound_ms, bound_by = least_ms(moved, ops)
+        print(f"{name} {label} ({card}): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {lib_ms} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {moved} B, "
+              f"{sum(n for n, _ in ops)} ops), max_abs_err {err}",
+              flush=True)
+        rows.setdefault(name, {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
+
+    # stencil: one 1080p frame, Sobel / 12 u8.0 -> s9.4 (the case of
+    # benchmarks/run.py:44-46), then a 5x5 binomial blur
+    frame = frames(FRAME, 30).astype(np.float32)
+    t_in, t_out = FixedPointType(8, 0, False), FixedPointType(9, 4, True)
+    pixels = FRAME[0] * FRAME[1]
+    for label, weights, scale in (("sobel3x3", SOBEL, 1 / 12),
+                                  ("blur5x5", BLUR5, 1 / 256)):
+        args = SO.stencil_operands(frame, weights, scale, t_in, t_out, dev)
+        measure("stencil", f"{label} {FRAME[0]}x{FRAME[1]}",
+                lambda: (K.fixedpoint_stencil(*args),),
+                lambda: (K.fixedpoint_stencil_reference(*args),),
+                args[0].numel() * 4 + pixels * 4,
+                [(2 * len(args[1]) * pixels, PEAK_OPS_PER_S)])
+
+    # qmatmul_i32: int8 codes of qwen3-4b's up-projection; torch._int_mm
+    # is its yardstick only, timed here and called nowhere in the port
+    M, Kd, N = QWEN_UP
+    a_q = torch.randint(-128, 128, (M, Kd), dtype=torch.int8, device=dev,
+                        generator=gen)
+    b_q = torch.randint(-128, 128, (Kd, N), dtype=torch.int8, device=dev,
+                        generator=gen)
+    acc_want = QM.qmatmul_i32_reference(a_q, b_q)
+    int_mm = lambda: torch._int_mm(a_q, b_q)  # noqa: E731
+    try:
+        print(f"torch._int_mm == plain version: "
+              f"{torch.equal(int_mm(), acc_want)}", flush=True)
+    except RuntimeError as e:       # the yardstick only; no port path
+        print(f"torch._int_mm refused these operands: {e}", flush=True)
+        int_mm = None
+    mm_label = f"{M}x{Kd}x{N}"
+    measure("qmatmul_i32", mm_label, lambda: (QM.qmatmul_i32(a_q, b_q),),
+            lambda: (QM.qmatmul_i32_reference(a_q, b_q),),
+            M * Kd + Kd * N + 4 * M * N,
+            [(2 * M * N * Kd, INT8_TC_OPS_PER_S)], reps=(20, 3),
+            library=int_mm)
+
+    # qmatmul_dequant: the same product through matmul_quantized's
+    # quantizers, f32 epilogue (2 multiplies an output) at the f32 rate
+    a = torch.randn((M, Kd), device=dev, generator=gen)
+    b = torch.randn((Kd, N), device=dev, generator=gen)
+    (qa, sa), (qb, sb) = QO.quantize_rows(a), QO.quantize_cols(b)
+    deq = (qa, qb, sa, sb)
+    measure("qmatmul_dequant", mm_label,
+            lambda: (QM.qmatmul_dequant(*deq),),
+            lambda: (QM.qmatmul_dequant_reference(*deq),),
+            M * Kd + Kd * N + 4 * (M + N) + 4 * M * N,
+            [(2 * M * N * Kd, INT8_TC_OPS_PER_S),
+             (2 * M * N, PEAK_OPS_PER_S)], reps=(20, 3))
+
+    # block_quantize / block_dequantize: one up-projection weight
+    w = torch.randn((Kd, N), device=dev, generator=gen) * 0.02
+    x = w.reshape(-1, QDQ_BLOCK)
+    nb, n = x.shape[0], x.numel()
+    q, s = QD.block_quantize(x)
+    qd_label = f"{nb}x{QDQ_BLOCK}"
+    # per element: abs, max, divide, rint, 2 clamps; per row 1 multiply
+    measure("block_quantize", qd_label, lambda: QD.block_quantize(x),
+            lambda: QD.block_quantize_reference(x), 4 * n + n + 4 * nb,
+            [(6 * n + nb, PEAK_OPS_PER_S)])
+    # per element: convert, multiply
+    measure("block_dequantize", qd_label,
+            lambda: (QD.block_dequantize(q, s),),
+            lambda: (QD.block_dequantize_reference(q, s),),
+            n + 4 * nb + 4 * n, [(2 * n, PEAK_OPS_PER_S)])
+
+    # -- the library path through its front ends, counts from 0 --------
+    counters = {"stencil": K.LAUNCHES, "qmatmul_i32": QM.LAUNCHES,
+                "qmatmul_dequant": QM.LAUNCHES,
+                "block_quantize": QD.LAUNCHES,
+                "block_dequantize": QD.LAUNCHES}
+    for name, c in counters.items():
+        c[name] = 0
+    t0 = time.perf_counter()
+    sobel = SO.stencil_fixed(frame, SOBEL, 1 / 12, t_in, t_out)
+    blur = SO.stencil_fixed(frame, BLUR5, 1 / 256, t_in, t_out)
+    acc = QM.qmatmul_i32(a_q, b_q)
+    y = QO.matmul_quantized(a, b)
+    fq = DO.fake_quant(w)
+    codes, scales, pad = DO.compress(w)
+    back = DO.decompress(codes, scales, pad, w.shape)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c[name] for name, c in counters.items()}
+    missing = [name for name, k in launches.items() if k == 0]
+    assert not missing, f"the library path never launched {missing}"
+
+    # what came out: the stencils equal the front end on the CPU (the
+    # plain version, held to the JAX package by the CPU tests)
+    for label, out, weights, scale in (("sobel", sobel, SOBEL, 1 / 12),
+                                       ("blur", blur, BLUR5, 1 / 256)):
+        assert out.shape == FRAME and torch.isfinite(out).all()
+        want = SO.stencil_fixed(frame, weights, scale, t_in, t_out,
+                                device="cpu")
+        assert torch.equal(out.cpu(), want), f"stencil_fixed {label}"
+    assert torch.equal(acc, acc_want), "qmatmul_i32 on the library path"
+    assert y.shape == (M, N) and torch.isfinite(y).all()
+    assert torch.equal(y, QM.qmatmul_dequant_reference(*deq)), \
+        "matmul_quantized != plain version"
+    exact = a @ b
+    rel = float((y - exact).norm() / exact.norm())
+    small = [np.random.default_rng(i).normal(size=sh).astype(np.float32)
+             for i, sh in ((1, (256, 512)), (2, (512, 384)))]
+    assert torch.equal(QO.matmul_quantized(*small).cpu(),
+                       QO.matmul_quantized(*small, device="cpu")), \
+        "matmul_quantized: card != CPU on 256x512x384"
+    # fake_quant's round trip: within s/2 of x per element, give or take
+    # the f32 rounding of x / s and of q * s (|x| 2^-23 together)
+    s_el = scales.expand(-1, QDQ_BLOCK).reshape(w.shape).double()
+    slack = (fq.double() - w.double()).abs() - (
+        s_el / 2 + w.double().abs() * 2.0 ** -23)
+    assert fq.shape == w.shape and float(slack.max()) <= 0.0, \
+        "fake_quant strays more than s/2"
+    assert torch.equal(back, fq), "decompress(compress(w)) != fake_quant(w)"
+    print(f"library path ({card}): stencil_fixed sobel + blur "
+          f"{FRAME[0]}x{FRAME[1]}, qmatmul_i32 and matmul_quantized "
+          f"{mm_label}, fake_quant + compress/decompress {qd_label} in "
+          f"{wall * 1e3:.2f} ms (host clock); launches {launches}; "
+          f"matmul_quantized relative error vs f32 matmul {rel:.3e}; "
+          f"fake_quant within s/2; card == CPU on the stencils and a "
+          f"256x512x384 matmul_quantized", flush=True)
+
+    sources = {"stencil": ("stencil/csrc/stencil.cu",
+                           "stencil/kernel.py:89"),
+               "qmatmul_i32": ("qmatmul/csrc/qmatmul.cu",
+                               "qmatmul/kernel.py:56"),
+               "qmatmul_dequant": ("qmatmul/csrc/qmatmul.cu",
+                                   "qmatmul/kernel.py:76"),
+               "block_quantize": ("qdq/csrc/qdq.cu", "qdq/kernel.py:30"),
+               "block_dequantize": ("qdq/csrc/qdq.cu", "qdq/kernel.py:50")}
+    return [{"name": name, "route": "cuda",
+             "source": f"src/repro_torch/kernels/{src}",
+             "replaces": f"src/repro/kernels/{rep}",
+             "launches": launches[name], **rows[name]}
+            for name, (src, rep) in sources.items()]
 
 
 def islands(pipe, types, params, shape):
@@ -304,6 +536,9 @@ def main() -> int:
         print(f"fused_band {name} 4x{FRAME[0]}x{FRAME[1]} ({card}): "
               f"kernel {t:.4f} ms for {len(calls)} island(s)", flush=True)
 
+    # -- 2b. the kernel library ---------------------------------------------
+    library_rows = kernel_library(dev, card)
+
     # -- 3. serving: the main path ----------------------------------------
     n_frames = 16
     imgs = [frames(FRAME, 100 + i) for i in range(n_frames)]
@@ -358,7 +593,7 @@ def main() -> int:
         "launches": launches, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None}]}))
+        "library_ms": None}] + library_rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
-"""Build the port's CUDA sources with `nvcc` and load them with ctypes.
+"""Build the port's CUDA sources with `nvcc`, load them with ctypes and
+call them.
 
-Each source under `<kernel>/csrc/*.cu` has a plain C entry point.  It is
-compiled once into a shared library under `build/kernels/` at the root
-of the checkout, named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads from the cache.
+Each source under `<kernel>/csrc/*.cu` has one or more plain C entry
+points.  It is compiled once into a shared library under
+`build/kernels/` at the root of the checkout, named by a hash of the
+source and the flags, so an edited source rebuilds and an unchanged one
+loads from the cache.
 `build` starts one `nvcc` per missing library, all at once.
 """
 from __future__ import annotations
@@ -15,23 +17,38 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Sequence
+
+import torch
 
 HERE = Path(__file__).resolve().parent
 BUILD_DIR = HERE.parents[2] / "build" / "kernels"
-SOURCES = {"fused_band": HERE / "stencil" / "csrc" / "fused_band.cu"}
+SOURCES = {"fused_band": HERE / "stencil" / "csrc" / "fused_band.cu",
+           "stencil": HERE / "stencil" / "csrc" / "stencil.cu",
+           "qmatmul": HERE / "qmatmul" / "csrc" / "qmatmul.cu",
+           "qdq": HERE / "qdq" / "csrc" / "qdq.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 _c = ctypes
-# argument types of each library's C entry point
+_P, _I, _I64 = _c.c_void_p, _c.c_int, _c.c_int64
+# each library's C entry points and their argument types
 SIGNATURES = {
-    "fused_band": ("fused_band_launch", [
-        _c.c_void_p, _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-        _c.c_void_p, _c.POINTER(_c.c_void_p), _c.c_int,
-        _c.POINTER(_c.c_void_p), _c.c_int, _c.c_void_p, _c.c_int64,
-        _c.c_int, _c.c_int64, _c.c_int, _c.c_int, _c.c_void_p]),
+    "fused_band": {"fused_band_launch": [
+        _P, _I, _P, _P, _P, _P, _c.POINTER(_P), _I, _c.POINTER(_P), _I, _P,
+        _I64, _I, _I64, _I, _I, _P]},
+    # x, out, H, W, taps (int32 n x 3), n_taps, hy, hx, shift, qmin,
+    # qmax, stream
+    "stencil": {"stencil_launch": [
+        _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P]},
+    # a, b, [sa, sb,] out, M, N, K, stream
+    "qmatmul": {"qmatmul_i32_launch": [_P, _P, _P, _I, _I, _I, _P],
+                "qmatmul_dequant_launch": [_P, _P, _P, _P, _P, _I, _I, _I,
+                                           _P]},
+    # x, codes, scales, NB, BS, stream / codes, scales, out, NB, BS, stream
+    "qdq": {"block_quantize_launch": [_P, _P, _P, _I64, _I, _P],
+            "block_dequantize_launch": [_P, _P, _P, _I64, _I, _P]},
 }
 
 _LOCK = threading.Lock()
@@ -88,9 +105,30 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         if name not in _LOADED:
             lib = ctypes.CDLL(str(build([name])[name]))
-            fn_name, argtypes = SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _LOADED[name] = lib
         return _LOADED[name]
+
+
+def launch(name: str, fn_name: str, tensors: Sequence[torch.Tensor],
+           *scalars) -> None:
+    """Call entry point `fn_name` of library `name` with the data
+    pointers of `tensors` (contiguous, all on one CUDA device), then
+    `scalars`, then the device's current stream.  Raises on any other
+    operand and when the call returns a CUDA error."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise RuntimeError(f"{fn_name}: unsupported device {dev}")
+    for t in tensors:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{fn_name}: every operand must be a "
+                             f"contiguous tensor on {dev}")
+    fn = getattr(load(name), fn_name)
+    with torch.cuda.device(dev):
+        rc = fn(*[t.data_ptr() for t in tensors], *scalars,
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} failed: CUDA error {rc}")

@@ -1,0 +1,89 @@
+"""Exact int8 x int8 -> int32 matmul, plain and fused with dequantization.
+
+Replaces the TPU kernels `repro/kernels/qmatmul/kernel.py:qmatmul_i32`
+and `qmatmul_dequant` with one CUDA source, `csrc/qmatmul.cu` (s8
+tensor-core `mma.sync`, int32 accumulators, ragged edges masked, so no
+block padding).  The plain versions sit beside the wrappers: the
+wrappers run them for CPU tensors, and on CUDA tensors launch the
+kernel or raise, counting launches in `LAUNCHES`.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict
+
+import torch
+
+LAUNCHES: Dict[str, int] = {"qmatmul_i32": 0, "qmatmul_dequant": 0}
+_LAUNCH_LOCK = threading.Lock()
+
+
+def qmatmul_i32_reference(a_q: torch.Tensor, b_q: torch.Tensor
+                          ) -> torch.Tensor:
+    """Plain version: (M, K) int8 @ (K, N) int8 -> (M, N) int32, exact.
+
+    CUDA has no integer GEMM in torch, so the product is an f64 matmul
+    of the int8 values, exact in any summation order while |acc| <
+    2^53, then cast to int32.  |acc| <= 2^14 K stays below 2^31 while
+    K < 131072; only above that would the reference and the kernel wrap
+    in int32 where this cast does not, and no caller goes there."""
+    return torch.matmul(a_q.to(torch.float64),
+                        b_q.to(torch.float64)).to(torch.int32)
+
+
+def qmatmul_dequant_reference(a_q: torch.Tensor, b_q: torch.Tensor,
+                              a_scale: torch.Tensor, b_scale: torch.Tensor
+                              ) -> torch.Tensor:
+    """Plain version of the fused epilogue: ``(f32(acc) * sa) * sb``, in
+    the reference's order; a_scale (M, 1), b_scale (1, N) f32."""
+    acc = qmatmul_i32_reference(a_q, b_q)
+    return acc.to(torch.float32) * a_scale * b_scale
+
+
+def _check(name: str, a_q: torch.Tensor, b_q: torch.Tensor,
+           *scales: torch.Tensor) -> None:
+    ok = (a_q.dtype == b_q.dtype == torch.int8 and a_q.dim() == b_q.dim() == 2
+          and a_q.shape[1] == b_q.shape[0])
+    if ok and scales:
+        sa, sb = scales
+        ok = (sa.dtype == sb.dtype == torch.float32
+              and tuple(sa.shape) == (a_q.shape[0], 1)
+              and tuple(sb.shape) == (1, b_q.shape[1]))
+    if not ok:
+        got = ", ".join(f"{t.dtype} {tuple(t.shape)}"
+                        for t in (a_q, b_q, *scales))
+        raise ValueError(f"{name}: want int8 (M, K) and (K, N)"
+                         + (", f32 (M, 1) and (1, N)" if scales else "")
+                         + f"; got {got}")
+
+
+def _launch(name: str, out_dtype: torch.dtype, *operands: torch.Tensor
+            ) -> torch.Tensor:
+    from repro_torch.kernels import _build
+    (M, K), N = operands[0].shape, operands[1].shape[1]
+    out = torch.empty((M, N), dtype=out_dtype, device=operands[0].device)
+    _build.launch("qmatmul", f"{name}_launch", (*operands, out), M, N, K)
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
+    return out
+
+
+def qmatmul_i32(a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 @ (K, N) int8 -> (M, N) int32, exact.  CPU tensors
+    run the plain version; CUDA tensors launch `csrc/qmatmul.cu`."""
+    _check("qmatmul_i32", a_q, b_q)
+    if a_q.device.type == "cpu":
+        return qmatmul_i32_reference(a_q, b_q)
+    return _launch("qmatmul_i32", torch.int32, a_q, b_q)
+
+
+def qmatmul_dequant(a_q: torch.Tensor, b_q: torch.Tensor,
+                    a_scale: torch.Tensor, b_scale: torch.Tensor
+                    ) -> torch.Tensor:
+    """Fused int8 matmul + dequant: f32 (M, N) = (acc * sa) * sb, with
+    a_scale (M, 1) per row and b_scale (1, N) per column."""
+    _check("qmatmul_dequant", a_q, b_q, a_scale, b_scale)
+    if a_q.device.type == "cpu":
+        return qmatmul_dequant_reference(a_q, b_q, a_scale, b_scale)
+    return _launch("qmatmul_dequant", torch.float32, a_q, b_q, a_scale,
+                   b_scale)

@@ -1,1 +1,2 @@
-"""Fused rate-island band kernel (`kernel.py`, `csrc/fused_band.cu`)."""
+"""Stencil kernels: the fused rate-island band kernel and the
+single-stage fixed-point stencil (`kernel.py`, `ops.py`, `csrc/`)."""

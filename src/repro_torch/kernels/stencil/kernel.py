@@ -1,8 +1,9 @@
-"""The fused rate-island band kernel: encoder, plain version, wrapper.
+"""The stencil kernels: the fused rate-island band kernel (encoder,
+plain version, wrapper) and the single-stage fixed-point stencil.
 
-Replaces the TPU kernel `repro/kernels/stencil/kernel.py:fused_pipeline`
-(`_fused_kernel`, `eval_band`, `band_output`; `pallas_call` at line
-321).  One call runs one rate island over every (image, band) of its
+The band kernel replaces the TPU kernel
+`repro/kernels/stencil/kernel.py:fused_pipeline` (`_fused_kernel`,
+`eval_band`, `band_output`; `pallas_call` at line 321).  One call runs one rate island over every (image, band) of its
 schedule: it loads each input's rows of the band with edge-replicate
 clamps, evaluates every compute stage of the island on the band through
 clamped tap gathers, and writes rows ``[-lo, -lo + step)`` of the
@@ -18,13 +19,18 @@ datapath rule and only the CUDA transcription is left for the card.
 `fused_pipeline` is the wrapper: on CPU tensors it runs the plain
 version, on CUDA tensors it launches the kernel or raises, and it counts
 its launches in `LAUNCHES`.
+
+`fixedpoint_stencil` (end of the file) replaces the TPU kernel
+`repro/kernels/stencil/kernel.py:fixedpoint_stencil` with
+`csrc/stencil.cu`, beside its plain version
+`fixedpoint_stencil_reference`, under the same wrapper rule.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import threading
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -60,7 +66,7 @@ THREADS = 256
 # the first four.
 FC_STEP, FC_INV_STEP, FC_MIN, FC_MAX, FC_CSCALE = range(5)
 
-LAUNCHES: Dict[str, int] = {"fused_band": 0}
+LAUNCHES: Dict[str, int] = {"fused_band": 0, "stencil": 0}
 _LAUNCH_LOCK = threading.Lock()
 
 
@@ -511,3 +517,87 @@ def _launch(enc: EncodedProgram, grid: int, batch: Optional[int],
     with _LAUNCH_LOCK:
         LAUNCHES["fused_band"] += 1
     return tuple(o if batch is not None else o[0] for o in outs)
+
+
+# ---------------------------------------------------------------------------
+# the single-stage fixed-point stencil
+# ---------------------------------------------------------------------------
+
+Tap = Tuple[int, int, int]      # (dy, dx, w_q)
+Halo = Union[int, Tuple[int, int]]
+MAX_TAPS = 128                  # the taps table of `csrc/stencil.cu`
+_STENCIL_TILE = (16, 64)        # output rows, columns of one CUDA block
+_MAX_SMEM = 232448 - 16 * MAX_TAPS  # dynamic shared memory of one block
+_INT32 = (-(1 << 31), (1 << 31) - 1)
+
+
+def _stencil_args(x_q: torch.Tensor, taps: Sequence[Tap], halo: Halo,
+                  shift: int, qmin: int, qmax: int
+                  ) -> Tuple[List[Tap], int, int, int, int]:
+    """Checked arguments: the non-zero taps, the halo (hy, hx) and the
+    output (H, W).  `halo` is one int for both axes or (hy, hx)."""
+    hy, hx = (halo, halo) if isinstance(halo, int) else halo
+    if x_q.dtype != torch.int32 or x_q.dim() != 2:
+        raise ValueError(f"fixedpoint_stencil: x_q must be a 2-D int32 "
+                         f"tensor, got {x_q.dtype} {tuple(x_q.shape)}")
+    H, W = x_q.shape[0] - 2 * hy, x_q.shape[1] - 2 * hx
+    if hy < 0 or hx < 0 or H <= 0 or W <= 0:
+        raise ValueError(f"fixedpoint_stencil: halo {halo} does not fit "
+                         f"x_q of shape {tuple(x_q.shape)}")
+    taps = [(int(dy), int(dx), int(w)) for dy, dx, w in taps if w != 0]
+    for dy, dx, w in taps:
+        if abs(dy) > hy or abs(dx) > hx or not _INT32[0] <= w <= _INT32[1]:
+            raise ValueError(f"fixedpoint_stencil: tap {(dy, dx, w)} "
+                             f"outside halo {halo} or int32")
+    if shift > 31 or not (_INT32[0] <= qmin <= _INT32[1]
+                          and _INT32[0] <= qmax <= _INT32[1]):
+        raise ValueError(f"fixedpoint_stencil: shift {shift} above 31 or "
+                         f"bounds ({qmin}, {qmax}) outside int32")
+    return taps, hy, hx, H, W
+
+
+def fixedpoint_stencil_reference(x_q: torch.Tensor, taps: Sequence[Tap],
+                                 halo: Halo, shift: int,
+                                 qmin: int, qmax: int) -> torch.Tensor:
+    """Plain version: int32 shifted slices, as the reference's `ref.py`.
+
+    int32 adds and multiplies wrap as the reference's do; `>>` on int32
+    is the arithmetic shift (a floor), so the bias makes the rounding
+    half-UP; the clip follows the shift."""
+    taps, hy, hx, H, W = _stencil_args(x_q, taps, halo, shift, qmin, qmax)
+    acc = torch.zeros((H, W), dtype=torch.int32, device=x_q.device)
+    for dy, dx, w in taps:
+        acc = acc + w * x_q[hy + dy:hy + dy + H, hx + dx:hx + dx + W]
+    if shift > 0:
+        acc = (acc + (1 << (shift - 1))) >> shift
+    return torch.clamp(acc, qmin, qmax)
+
+
+def fixedpoint_stencil(x_q: torch.Tensor, taps: Sequence[Tap],
+                       halo: Halo, shift: int, qmin: int,
+                       qmax: int) -> torch.Tensor:
+    """Apply the quantized stencil to a pre-padded scaled-int image.
+
+    x_q: int32 (H + 2hy, W + 2hx), edge-padded per axis; returns int32
+    (H, W).  CPU tensors run `fixedpoint_stencil_reference`; CUDA tensors
+    launch `csrc/stencil.cu` on the current stream or raise."""
+    if x_q.device.type == "cpu":
+        return fixedpoint_stencil_reference(x_q, taps, halo, shift, qmin,
+                                            qmax)
+    from repro_torch.kernels import _build
+    taps, hy, hx, H, W = _stencil_args(x_q, taps, halo, shift, qmin, qmax)
+    if len(taps) > MAX_TAPS:
+        raise ValueError(f"fixedpoint_stencil: {len(taps)} taps, the kernel "
+                         f"takes at most {MAX_TAPS}")
+    th, tw = _STENCIL_TILE
+    if 4 * (th + 2 * hy) * (tw + 2 * hx) > _MAX_SMEM:
+        raise ValueError(f"fixedpoint_stencil: halo {(hy, hx)} too large "
+                         f"for one block's shared memory")
+    out = torch.empty((H, W), dtype=torch.int32, device=x_q.device)
+    table = (ctypes.c_int32 * (3 * len(taps) or 1))(
+        *[v for tap in taps for v in tap])
+    _build.launch("stencil", "stencil_launch", (x_q, out), H, W, table,
+                  len(taps), hy, hx, shift, qmin, qmax)
+    with _LAUNCH_LOCK:
+        LAUNCHES["stencil"] += 1
+    return out

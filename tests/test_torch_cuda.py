@@ -1,4 +1,5 @@
-"""The band kernel on the card against its plain version, bit for bit.
+"""The port's kernels on the card against their plain versions, bit for
+bit: the band kernel, and the kernel library (stencil, qmatmul, qdq).
 
 Needs a CUDA card: every test here skips without one.  Run on the card:
 
@@ -11,9 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.fixedpoint import alpha_for_range
+from repro_torch.core.fixedpoint import FixedPointType, alpha_for_range
 from repro_torch.dsl.exec import run_fixed
+from repro_torch.kernels.qdq import kernel as QD
+from repro_torch.kernels.qdq import ops as qdq_ops
+from repro_torch.kernels.qmatmul import kernel as QM
+from repro_torch.kernels.qmatmul import ops as qmm_ops
 from repro_torch.kernels.stencil import kernel as K
+from repro_torch.kernels.stencil import ops as st_ops
 from repro_torch.pipelines import ALL, usm
 from repro_torch.pipelines.types import load_types, types_from_data
 
@@ -73,3 +79,101 @@ def test_saturating_phase_plan(cuda):
         for s, (lat, r) in ranges.items()}
     _check(ALL["dus_ext"](), _frames((2, 96, 96), 3), types_from_data(data),
            {}, cuda)
+
+
+# ---------------------------------------------------------------------------
+# the kernel library: stencil.cu, qmatmul.cu, qdq.cu
+# ---------------------------------------------------------------------------
+
+SOBEL = [[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]]
+
+
+def _same(got, want):
+    """Equal values, dtype and shape; NaN where the other has NaN."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.is_floating_point():
+        assert torch.equal(got.isnan(), want.isnan())
+        got, want = got.nan_to_num(0.0), want.nan_to_num(0.0)
+    assert torch.equal(got, want)
+
+
+def _launched(counters, name, fn):
+    before = counters[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert counters[name] == before + 1, name
+    return out
+
+
+STENCILS = [("sobel", 37, 70, 1, 1, 3), ("blur5x5", 48, 129, 2, 2, 8),
+            ("ties", 20, 64, 0, 1, 2), ("shift0", 17, 17, 1, 1, 0),
+            ("wide_halo", 40, 90, 40, 40, 5)]
+
+
+@pytest.mark.parametrize("name,H,W,hy,hx,shift", STENCILS,
+                         ids=[c[0] for c in STENCILS])
+def test_stencil_kernel_equals_plain_version(cuda, name, H, W, hy, hx, shift):
+    g = np.random.default_rng(H * W)
+    taps = [(int(g.integers(-hy, hy + 1)), int(g.integers(-hx, hx + 1)),
+             int(g.integers(-64, 65))) for _ in range(9)]
+    xq = torch.from_numpy(g.integers(-300, 300, (H + 2 * hy, W + 2 * hx))
+                          .astype(np.int32)).to(cuda)
+    args = (taps, (hy, hx), shift, -(2 ** 11), 2 ** 11 - 1)
+    got = _launched(K.LAUNCHES, "stencil",
+                    lambda: K.fixedpoint_stencil(xq, *args))
+    _same(got, K.fixedpoint_stencil_reference(xq, *args))
+
+
+QMM = [(256, 512, 384), (37, 70, 53), (64, 40, 64), (1, 1, 1), (130, 48, 20)]
+
+
+@pytest.mark.parametrize("M,K,N", QMM, ids=["x".join(map(str, s))
+                                             for s in QMM])
+def test_qmatmul_kernels_equal_plain_versions(cuda, M, K, N):
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    a = torch.randint(-128, 128, (M, K), dtype=torch.int8, device=cuda,
+                      generator=g)
+    b = torch.randint(-128, 128, (K, N), dtype=torch.int8, device=cuda,
+                      generator=g)
+    sa = torch.rand((M, 1), device=cuda, generator=g)
+    sb = torch.rand((1, N), device=cuda, generator=g)
+    _same(_launched(QM.LAUNCHES, "qmatmul_i32", lambda: QM.qmatmul_i32(a, b)),
+          QM.qmatmul_i32_reference(a, b))
+    _same(_launched(QM.LAUNCHES, "qmatmul_dequant",
+                    lambda: QM.qmatmul_dequant(a, b, sa, sb)),
+          QM.qmatmul_dequant_reference(a, b, sa, sb))
+
+
+@pytest.mark.parametrize("NB,BS", [(1000, 256), (37, 33), (5, 1)])
+def test_block_kernels_equal_plain_versions(cuda, NB, BS):
+    g = torch.Generator(device=cuda).manual_seed(NB)
+    x = torch.randn((NB, BS), device=cuda, generator=g) * 10
+    x[0] = 0.0
+    x[1, 0], x[2, -1] = float("nan"), float("inf")
+    q, s = _launched(QD.LAUNCHES, "block_quantize",
+                     lambda: QD.block_quantize(x))
+    wq, ws = QD.block_quantize_reference(x)
+    _same(q, wq)
+    _same(s, ws)
+    _same(_launched(QD.LAUNCHES, "block_dequantize",
+                    lambda: QD.block_dequantize(q, s)),
+          QD.block_dequantize_reference(q, s))
+
+
+def test_front_ends_on_the_card_equal_the_cpu(cuda):
+    """The card's front ends against the same front ends on the CPU,
+    which the CPU tests hold equal to the JAX package."""
+    g = np.random.default_rng(2)
+    img = g.integers(0, 256, (72, 130)).astype(np.float32)
+    tin, tout = FixedPointType(8, 0, False), FixedPointType(9, 4, True)
+    _same(st_ops.stencil_fixed(img, SOBEL, 1 / 12, tin, tout).cpu(),
+          st_ops.stencil_fixed(img, SOBEL, 1 / 12, tin, tout, device="cpu"))
+    a = g.normal(size=(100, 300)).astype(np.float32)
+    b = g.normal(size=(300, 70)).astype(np.float32)
+    _same(qmm_ops.matmul_quantized(a, b).cpu(),
+          qmm_ops.matmul_quantized(a, b, device="cpu"))
+    x = g.normal(size=(3, 1000)).astype(np.float32)
+    _same(qdq_ops.fake_quant(x).cpu(), qdq_ops.fake_quant(x, device="cpu"))
+    q, s, pad = qdq_ops.compress(x)
+    _same(qdq_ops.decompress(q, s, pad, x.shape).cpu(),
+          qdq_ops.fake_quant(x, device="cpu"))

@@ -33,7 +33,9 @@ def test_port_files_import_neither_jax_nor_repro(path):
 
 def test_importing_the_port_loads_no_jax_and_no_repro():
     code = ("import sys, repro_torch, repro_torch.serve, "
-            "repro_torch.dsl.exec, repro_torch.lowering.cuda_backend; "
+            "repro_torch.dsl.exec, repro_torch.lowering.cuda_backend, "
+            "repro_torch.kernels.stencil.ops, "
+            "repro_torch.kernels.qmatmul.ops, repro_torch.kernels.qdq.ops; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -1,0 +1,265 @@
+"""The kernel library of the port against the JAX package, bit for bit.
+
+`fixedpoint_stencil`, `qmatmul_i32`, `qmatmul_dequant`, `block_quantize`
+and `block_dequantize` (the wrappers, which run their plain versions on
+CPU tensors) against the Pallas kernels in interpret mode, and the front
+ends `stencil_fixed`, `matmul_quantized`, `fake_quant`, `compress` and
+`decompress` against the reference's.  Tolerance 0 everywhere, dtype
+included: all of it is exact integer arithmetic or the same f32
+operations in the same order.  The reference runs at JAX's default x32.
+"""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from repro.core.fixedpoint import FixedPointType as RefType
+from repro.kernels.qdq import kernel as rqdq
+from repro.kernels.qdq import ops as rqdq_ops
+from repro.kernels.qmatmul import kernel as rqmm
+from repro.kernels.qmatmul import ops as rqmm_ops
+from repro.kernels.stencil import kernel as rst
+from repro.kernels.stencil import ops as rst_ops
+from repro_torch.core.fixedpoint import FixedPointType
+from repro_torch.kernels.qdq import kernel as qdq
+from repro_torch.kernels.qdq import ops as qdq_ops
+from repro_torch.kernels.qmatmul import kernel as qmm
+from repro_torch.kernels.qmatmul import ops as qmm_ops
+from repro_torch.kernels.stencil import kernel as st
+from repro_torch.kernels.stencil import ops as st_ops
+
+SOBEL = [[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]]
+BLUR5 = [[a * b for b in (1, 4, 6, 4, 1)] for a in (1, 4, 6, 4, 1)]
+
+
+def _equal(got, want):
+    got = got.numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(want)
+    assert got.dtype == want.dtype, (got.dtype, want.dtype)
+    np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# fixedpoint_stencil
+# ---------------------------------------------------------------------------
+
+def _stencil_case(name):
+    """(x_q padded int32, taps, halo, shift, qmin, qmax)."""
+    rng = np.random.default_rng(7)
+    if name == "sobel3x3":
+        taps, w_beta = st_ops.quantize_weights(SOBEL, 1 / 12)
+        lo, hi, shift, qb = 0, 256, w_beta - 4, (-(2 ** 12), 2 ** 12 - 1)
+    elif name == "blur5x5":
+        taps, w_beta = st_ops.quantize_weights(BLUR5, 1 / 256)
+        lo, hi, shift, qb = 0, 1024, w_beta, (0, 1023)
+    elif name == "horizontal":
+        taps, w_beta = st_ops.quantize_weights([[1, 4, 6, 4, 1]], 1 / 16)
+        lo, hi, shift, qb = 0, 256, w_beta, (0, 255)
+    elif name == "saturating":
+        taps, w_beta = st_ops.quantize_weights(SOBEL, 1.0)
+        lo, hi, shift, qb = 0, 256, 0, (-8, 7)
+    elif name == "negative_ties":
+        # acc = 2a - b on [-50, 50], shift 2: every acc = 2 mod 4 is a tie,
+        # and half-up sends -1.5 to -1, not -2
+        taps = [(0, 0, 2), (0, 1, -1)]
+        lo, hi, shift, qb = -50, 51, 2, (-(2 ** 15), 2 ** 15 - 1)
+    elif name == "shift0":
+        taps = [(-1, 0, 3), (0, 0, -5), (1, 1, 7)]
+        lo, hi, shift, qb = -100, 100, 0, (-(2 ** 15), 2 ** 15 - 1)
+    hy, hx = st_ops.tap_halo(taps)
+    x = rng.integers(lo, hi, (16, 24)).astype(np.int32)
+    return np.pad(x, ((hy, hy), (hx, hx)), mode="edge"), taps, (hy, hx), \
+        shift, *qb
+
+
+@pytest.mark.parametrize("name", ["sobel3x3", "blur5x5", "horizontal",
+                                  "saturating", "negative_ties", "shift0"])
+def test_fixedpoint_stencil_equals_the_pallas_kernel(name):
+    xq, taps, halo, shift, qmin, qmax = _stencil_case(name)
+    if name == "horizontal":
+        assert halo[0] == 0
+    want = rst.fixedpoint_stencil(jnp.asarray(xq), taps, halo, shift, qmin,
+                                  qmax, tile_h=8, interpret=True)
+    got = st.fixedpoint_stencil(torch.from_numpy(xq), taps, halo, shift,
+                                qmin, qmax)
+    _equal(got, want)
+    if name == "saturating":
+        assert got.min() == qmin and got.max() == qmax
+    if name == "negative_ties":
+        acc = 2 * xq[:, :-2].astype(np.int64) - xq[:, 1:-1]
+        assert ((acc < 0) & (acc % 4 == 2)).any()
+
+
+# ---------------------------------------------------------------------------
+# stencil_fixed
+# ---------------------------------------------------------------------------
+
+STENCIL_FRONT = {
+    # benchmarks/run.py:44-46: Sobel / 12 (lossy w_beta = 12), u8.0 -> s9.4
+    "sobel_bench": (SOBEL, 1 / 12, (8, 0, False), (9, 4, True), "int"),
+    "dyadic_blur": (BLUR5, 1 / 256, (8, 2, False), (9, 3, True), "int"),
+    "random_f32": (SOBEL, 1 / 8, (8, 3, False), (10, 2, True), "float"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(STENCIL_FRONT))
+def test_stencil_fixed_equals_the_reference(name):
+    weights, scale, tin, tout, kind = STENCIL_FRONT[name]
+    rng = np.random.default_rng(11)
+    if kind == "int":
+        img = rng.integers(0, 256, (64, 64)).astype(np.float32)
+    else:
+        img = rng.uniform(0, 255, (40, 56)).astype(np.float32)
+    want = rst_ops.stencil_fixed(jnp.asarray(img), weights, scale,
+                                 RefType(*tin), RefType(*tout))
+    got = st_ops.stencil_fixed(img, weights, scale, FixedPointType(*tin),
+                               FixedPointType(*tout), device="cpu")
+    _equal(got, want)
+
+
+def test_stencil_fixed_width_budget_raises():
+    img = np.zeros((8, 8), np.float32)
+    with pytest.raises(ValueError, match="int32"):
+        rst_ops.stencil_fixed(jnp.asarray(img), SOBEL, 1 / 12,
+                              RefType(16, 12), RefType(9, 4))
+    with pytest.raises(ValueError, match="int32"):
+        st_ops.stencil_fixed(img, SOBEL, 1 / 12, FixedPointType(16, 12),
+                             FixedPointType(9, 4), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# qmatmul
+# ---------------------------------------------------------------------------
+
+def _codes(rng, *shape):
+    return rng.integers(-128, 128, shape).astype(np.int8)
+
+
+@pytest.mark.parametrize("M,K,N,blk", [(64, 96, 32, 32), (128, 128, 128, 128)])
+def test_qmatmul_kernels_equal_the_pallas_kernels(M, K, N, blk):
+    rng = np.random.default_rng(M + K + N)
+    a, b = _codes(rng, M, K), _codes(rng, K, N)
+    sa = rng.uniform(1e-3, 1, (M, 1)).astype(np.float32)
+    sb = rng.uniform(1e-3, 1, (1, N)).astype(np.float32)
+    blocks = dict(block_m=blk, block_n=blk, block_k=blk, interpret=True)
+    _equal(qmm.qmatmul_i32(torch.from_numpy(a), torch.from_numpy(b)),
+           rqmm.qmatmul_i32(jnp.asarray(a), jnp.asarray(b), **blocks))
+    _equal(qmm.qmatmul_dequant(*map(torch.from_numpy, (a, b, sa, sb))),
+           rqmm.qmatmul_dequant(*map(jnp.asarray, (a, b, sa, sb)), **blocks))
+
+
+@pytest.mark.parametrize("M,K,N", [(37, 70, 53), (5, 300, 7), (130, 64, 129)])
+def test_matmul_quantized_equals_the_reference(M, K, N):
+    rng = np.random.default_rng(3 * M + K)
+    a = rng.normal(size=(M, K)).astype(np.float32)
+    b = (rng.normal(size=(K, N)) * 10).astype(np.float32)
+    a[1] = 0.0                                    # a zero row: scale 1
+    want = rqmm_ops.matmul_quantized(jnp.asarray(a), jnp.asarray(b))
+    _equal(qmm_ops.matmul_quantized(a, b, device="cpu"), want)
+
+
+# ---------------------------------------------------------------------------
+# qdq
+# ---------------------------------------------------------------------------
+
+def _qdq_rows(name):
+    rng = np.random.default_rng(5)
+    x = (rng.normal(size=(24, 64))
+         * rng.uniform(1e-3, 1e3, (24, 1))).astype(np.float32)
+    if name == "zero_row":
+        x[3] = 0.0
+    elif name == "ties":
+        # absmax 127 gives s = 1: the codes are rint(x), half to even
+        x[2] = np.resize(np.float32([127, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5,
+                                     -126.5]), 64)
+    elif name == "nan_inf":
+        x[4, 7], x[9, 0] = np.nan, np.inf
+    elif name == "recip_scale":
+        # absmax 9: 9 / 127 and 9 * f32(1 / 127) are an ulp apart, and the
+        # Pallas kernel, compiled by XLA, computes the second
+        x[6] = np.resize(np.float32([9, -3.25, 0.5]), 64)
+    return x
+
+
+@pytest.mark.parametrize("name", ["random", "zero_row", "ties", "nan_inf",
+                                  "recip_scale"])
+def test_block_kernels_equal_the_pallas_kernels(name):
+    x = _qdq_rows(name)
+    wq, ws = rqdq.block_quantize(jnp.asarray(x), interpret=True)
+    q, s = qdq.block_quantize(torch.from_numpy(x))
+    _equal(q, wq)
+    _equal(s, ws)
+    if name == "zero_row":
+        assert s[3, 0] == 1.0 and not q[3].any()
+    if name == "ties":
+        assert s[2, 0] == 1.0
+        assert q[2, :8].tolist() == [127, 0, 2, 2, 0, -2, -2, -126]
+    if name == "nan_inf":
+        assert torch.isnan(s[4, 0]) and torch.isinf(s[9, 0])
+    if name == "recip_scale":
+        nine = np.float32(9)
+        assert s[6, 0] == nine * (np.float32(1) / np.float32(127))
+        assert s[6, 0] != nine / np.float32(127)
+    _equal(qdq.block_dequantize(q, s),
+           rqdq.block_dequantize(wq, ws, interpret=True))
+
+
+@pytest.mark.parametrize("shape,block", [((3, 100), 64), ((2, 5, 7), 16),
+                                         ((512,), 256)])
+def test_fake_quant_equals_the_reference(shape, block):
+    x = np.random.default_rng(len(shape)).normal(size=shape).astype(
+        np.float32)
+    want = rqdq_ops.fake_quant(jnp.asarray(x), block_size=block)
+    got = qdq_ops.fake_quant(x, block_size=block, device="cpu")
+    assert tuple(got.shape) == shape
+    _equal(got, want)
+
+
+def test_compress_decompress_round_trip_equals_the_reference():
+    x = np.random.default_rng(9).normal(size=(7, 33)).astype(np.float32)
+    wq, ws, wpad = rqdq_ops.compress(jnp.asarray(x), block_size=32)
+    q, s, pad = qdq_ops.compress(x, block_size=32, device="cpu")
+    assert pad == wpad == 25
+    _equal(q, wq)
+    _equal(s, ws)
+    _equal(qdq_ops.decompress(q, s, pad, x.shape, device="cpu"),
+           rqdq_ops.decompress(wq, ws, wpad, x.shape))
+
+
+# ---------------------------------------------------------------------------
+# devices
+# ---------------------------------------------------------------------------
+
+FRONT_ENDS = {
+    "stencil_fixed": lambda: st_ops.stencil_fixed(
+        np.zeros((8, 8), np.float32), SOBEL, 1 / 12,
+        FixedPointType(8, 0, False), FixedPointType(9, 4)),
+    "matmul_quantized": lambda: qmm_ops.matmul_quantized(
+        np.ones((4, 4), np.float32), np.ones((4, 4), np.float32)),
+    "fake_quant": lambda: qdq_ops.fake_quant(np.ones(8, np.float32)),
+    "compress": lambda: qdq_ops.compress(np.ones(8, np.float32)),
+    "decompress": lambda: qdq_ops.decompress(
+        np.zeros((1, 256), np.int8), np.ones((1, 1), np.float32), 248, (8,)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FRONT_ENDS))
+def test_front_end_defaults_to_the_card_and_raises_without_one(name,
+                                                               monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FRONT_ENDS[name]()
+
+
+def test_wrappers_on_cpu_tensors_launch_nothing():
+    counters = (st.LAUNCHES, qmm.LAUNCHES, qdq.LAUNCHES)
+    before = [dict(c) for c in counters]
+    rng = np.random.default_rng(1)
+    xq, taps, halo, shift, qmin, qmax = _stencil_case("sobel3x3")
+    st.fixedpoint_stencil(torch.from_numpy(xq), taps, halo, shift, qmin, qmax)
+    a, b = (torch.from_numpy(_codes(rng, 8, 8)) for _ in range(2))
+    qmm.qmatmul_i32(a, b)
+    qmm.qmatmul_dequant(a, b, torch.ones(8, 1), torch.ones(1, 8))
+    q, s = qdq.block_quantize(torch.ones(4, 8))
+    qdq.block_dequantize(q, s)
+    assert [dict(c) for c in counters] == before

@@ -11,8 +11,13 @@ Phases (any failure raises, and the exit code is not 0):
 2. hold the band kernel against its plain PyTorch version on the card,
    island by island with `torch.equal`: usm, hcd and dus_ext at
    1080x1920, batch 2, and dus_ext at 96x96 on a saturating phase plan;
-   check a known answer (USM leaves a flat frame unchanged); time the
-   kernel and the plain version at the serving shape;
+   check a known answer (USM leaves a flat frame unchanged); at the
+   serving shape 4x1080x1920, print each island's column tiles, work
+   items, shared memory, blocks per SM, registers and tile placement
+   (failing if any tile is in global memory), and time usm, hcd and
+   dus_ext warm, with the L2 flushed, with every tile in global memory
+   and at column tile 128, beside their bounds and (usm) the plain
+   version;
 2b. the kernel library: hold each of its five kernels against its plain
    version with `torch.equal` and time both (and `torch._int_mm` beside
    `qmatmul_i32`) at the sizes users run: one 1080x1920 frame through a
@@ -445,6 +450,115 @@ def trace_serving(pipe, types, params, imgs, card) -> None:
           f"{submit_ms:.3f} ms", flush=True)
 
 
+def band_work(isls, nb: int):
+    """(bytes, operations) the islands need at batch `nb`: each island's
+    inputs read once and outputs written once, in their containers; per
+    output pixel of each stage, a multiply and an add per integer tap
+    and one op per arithmetic instruction of an expression program."""
+    from repro_torch.kernels.stencil import kernel as K
+    moved = ops = 0
+    for _, enc in isls:
+        for key in ("in_slot", "out_slot"):
+            moved += sum(nb * d["H"] * d["W"] * d["esize"]
+                         for _, d in enc.slots(key))
+        for d in enc.rows():
+            if d["kind"] == K.KIND_INTLINEAR:
+                per = 2 * d["tap_count"]
+            elif d["kind"] == K.KIND_EXPR:
+                code = enc.prog[d["prog_begin"]:d["prog_begin"]
+                                + d["prog_len"]]
+                per = int(sum(op not in (K.OP_REF, K.OP_CONST)
+                              for op in code[:, 0]))
+            else:
+                continue
+            ops += nb * d["H"] * d["W"] * per
+    return moved, ops
+
+
+def band_kernel_times(dev, card, params) -> dict:
+    """Phase 2's timing, at the serving shape 4x1080x1920: per pipeline
+    (usm, hcd, dus_ext) each island's column tiles, shared memory,
+    residency, registers and tile placement (none may be global); the
+    kernel's time warm and with the L2 flushed; its bound; the time with
+    every tile in global memory and at column tiles of 128 (the split);
+    and the plain version's time on USM."""
+    import torch
+
+    from repro_torch.kernels.stencil import kernel as K
+    from repro_torch.lowering.cuda_backend import island_program
+    from repro_torch.pipelines import ALL
+    from repro_torch.pipelines.types import load_types
+    shape = (4,) + FRAME
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    places = ("shared", "global", "none")
+    out = {}
+    for k, name in enumerate(("usm", "hcd", "dus_ext")):
+        lp, isls = islands(ALL[name](), load_types(name),
+                           params.get(name, {}), shape)
+        bufs = ingest(lp, frames(shape, 20 + k), dev)
+        for isl, enc in isls:
+            occ = K.occupancy(enc, dev)
+            items = shape[0] * isl.schedule.grid * enc.ntiles
+            print(f"fused_band {name} island {isl.idx} "
+                  f"{'x'.join(map(str, shape))} ({card}): column tile "
+                  f"{enc.col_tile}, {enc.ntiles} column tiles, {items} "
+                  f"work items, {enc.smem_bytes} B shared a block, "
+                  f"{occ['blocks_per_sm']} blocks/SM x {occ['sms']} SMs "
+                  f"(grid {K.launch_grid(enc, isl.schedule.grid, 4, dev)}"
+                  f"), {occ['registers']} registers and "
+                  f"{occ['local_bytes']} B local a thread, "
+                  f"{K.THREADS} threads; placement "
+                  f"{dict(zip(enc.names, (places[d['place']] for d in enc.rows())))}",
+                  flush=True)
+            assert enc.ws_per_block == 0 and all(
+                d["place"] != K.PLACE_GLOBAL for d in enc.rows()), \
+                f"{name}: a 1080p tile in global memory"
+
+        def launcher(encs):
+            calls = [(K.fused_pipeline(e, i.schedule.grid, shape[0]),
+                      [bufs[n] for n in i.inputs]) for i, e in encs]
+            return lambda: [o for f, a in calls for o in f(*a)]
+
+        run = launcher(isls)
+        want = run()
+        ms = cuda_ms(run, 20)
+        cold = cold_ms(run, 10, flush)
+        moved, ops = band_work(isls, shape[0])
+        bound, bound_by = least_ms(moved, [(ops, PEAK_OPS_PER_S)])
+        split = {}
+        for label, opts in (("every tile in global memory",
+                             {"smem_limit": 0}),
+                            ("column tile 128", {"col_tile": 128})):
+            # the same column tiles as the default, unless asked
+            other = launcher([(i, K.encode_program(
+                island_program(lp, i), **{
+                    "col_tile": e.col_tile or max(d["W"] for d in e.rows()),
+                    **opts}))
+                for i, e in isls])
+            same(f"fused_band {name} {label}", other(), want)
+            split[label] = cuda_ms(other, 10)
+        print(f"fused_band {name} {'x'.join(map(str, shape))} ({card}): "
+              f"kernel {ms:.4f} ms warm, {cold:.4f} ms with the L2 "
+              f"flushed, bound {bound:.4f} ms ({bound_by}: {moved} B at "
+              f"{HBM_BYTES_PER_S:.3g} B/s, {ops} ops at "
+              f"{PEAK_OPS_PER_S:.3g}/s), {len(isls)} island(s); same "
+              f"kernel warm with "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()),
+              flush=True)
+        out[name] = {"ms": ms, "cold_ms": cold, "bound_ms": bound,
+                     "bound_by": bound_by, "split_ms": split}
+        if name == "usm":
+            (isl, enc), = isls
+            plain = K.fused_pipeline_reference(enc, isl.schedule.grid,
+                                               shape[0])
+            ins = [bufs[n] for n in isl.inputs]
+            out[name]["plain_ms"] = cuda_ms(lambda: plain(*ins), 2)
+            print(f"fused_band usm plain version ({card}): "
+                  f"{out[name]['plain_ms']:.2f} ms; 1 launch per batch of "
+                  f"4 = 0.25 launches per frame", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -490,51 +604,7 @@ def main() -> int:
         "USM changed a flat frame"
     print("known answer: USM leaves a flat 1080p frame unchanged", flush=True)
 
-    # time one launch at the serving shape: usm, batch 4, 1080x1920
-    lp, isls = islands(usm.build(), load_types("usm"), params["usm"],
-                       (4,) + FRAME)
-    (isl, enc), = isls
-    bufs = ingest(lp, frames((4,) + FRAME, 1), dev)
-    ins = [bufs[n] for n in isl.inputs]
-    kern = K.fused_pipeline(enc, isl.schedule.grid, 4)
-    plain = K.fused_pipeline_reference(enc, isl.schedule.grid, 4)
-    ms = cuda_ms(lambda: kern(*ins), 20)
-    plain_ms = cuda_ms(lambda: plain(*ins), 2)
-    rows = enc.rows()
-    moved = sum(a.numel() * a.element_size() for a in ins) + sum(
-        4 * d["H"] * d["W"] * K.CONTAINERS[d["code"]].itemsize
-        for _, d in enc.slots("out_slot"))
-    # operations this input needs: per output pixel of each stage, a
-    # multiply and an add per integer tap, one op per arithmetic
-    # instruction of an expression program
-    ops = 0
-    for d in rows:
-        if d["kind"] == K.KIND_INTLINEAR:
-            per = 2 * d["tap_count"]
-        elif d["kind"] == K.KIND_EXPR:
-            code = enc.prog[d["prog_begin"]:d["prog_begin"] + d["prog_len"]]
-            per = int(sum(op not in (K.OP_REF, K.OP_CONST)
-                          for op in code[:, 0]))
-        else:
-            continue
-        ops += 4 * d["H"] * d["W"] * per
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    print(f"fused_band usm 4x{FRAME[0]}x{FRAME[1]} ({card}): kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
-          f"({moved} B at {HBM_BYTES_PER_S:.3g} B/s; {ops} ops at "
-          f"{PEAK_OPS_PER_S:.3g}/s = {ops_ms:.4f} ms), 1 launch per batch "
-          f"of 4 = 0.25 launches per frame", flush=True)
-    for k, name in enumerate(("hcd", "dus_ext")):
-        lp2, isls2 = islands(ALL[name](), load_types(name), {},
-                             (4,) + FRAME)
-        bufs = ingest(lp2, frames((4,) + FRAME, 20 + k), dev)
-        calls = [(K.fused_pipeline(e, i.schedule.grid, 4),
-                  [bufs[n] for n in i.inputs]) for i, e in isls2]
-        t = cuda_ms(lambda: [f(*a) for f, a in calls], 5)
-        print(f"fused_band {name} 4x{FRAME[0]}x{FRAME[1]} ({card}): "
-              f"kernel {t:.4f} ms for {len(calls)} island(s)", flush=True)
+    band = band_kernel_times(dev, card, params)
 
     # -- 2b. the kernel library ---------------------------------------------
     library_rows = kernel_library(dev, card)
@@ -586,14 +656,17 @@ def main() -> int:
     trace_serving(usm.build(), load_types("usm"), params["usm"], imgs, card)
 
     # -- 4. result lines ---------------------------------------------------
+    usm_t = band["usm"]
     print(json.dumps({"kernels": [{
         "name": "fused_band", "route": "cuda",
         "source": "src/repro_torch/kernels/stencil/csrc/fused_band.cu",
         "replaces": "src/repro/kernels/stencil/kernel.py:265",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None}] + library_rows}))
+        "launches": launches, "max_abs_err": err, "ms": usm_t["ms"],
+        "plain_ms": usm_t["plain_ms"], "bound_ms": usm_t["bound_ms"],
+        "bound_by": usm_t["bound_by"], "library_ms": None,
+        "cold_ms": usm_t["cold_ms"],
+        "pipelines": {n: {k: v for k, v in t.items() if k != "split_ms"}
+                      for n, t in band.items()}}] + library_rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,40 +1,73 @@
 // fused_band.cu — one rate island of a fixed-point image pipeline, run
-// over every (image, band) of its row-band schedule.
+// over every (image, band, column tile) of its schedule.
 //
 // Replaces the TPU kernel src/repro/kernels/stencil/kernel.py:
-// fused_pipeline (its `_fused_kernel` body, `eval_band` geometry and
-// `band_output`; pallas_call at kernel.py:321).  The island is not
-// compiled into code: repro_torch/kernels/stencil/kernel.py:encode_program
-// flattens it into tables that this one kernel interprets, and
-// `fused_pipeline_reference` there walks the same tables with torch ops.
-//
-// Design.  The grid is min(B * nbands, 4 * SMs) blocks; each block loops
-// over (image, band) work items with stride gridDim.x and evaluates the
-// island's compute stages one after another, one thread per tile pixel,
-// with __syncthreads() between stages.  Input bands are read straight
-// from the input tensors (their edge-replicate clamp is an index clamp);
-// every compute stage's band tile lives in a per-block GLOBAL-memory
-// workspace in 8-byte slots (int64 for integer stages, f64 for
-// float-stored ones).  They cannot stay in shared memory at this width:
-// at W = 1920 one USM band is 4 stages x 8 rows x 1920 x 8 B = 0.5 MB and
-// one HCD band holds 11 stages, against 227 KB of shared memory a block.
+// fused_pipeline (its `_fused_kernel` / `_fused_kernel_prefetch` bodies,
+// `eval_band` geometry and `band_output`; pallas_call at kernel.py:321).
+// The island is not compiled into code: repro_torch/kernels/stencil/
+// kernel.py:encode_program flattens it into tables that this one kernel
+// interprets, and `fused_pipeline_reference` there walks the same tables
+// with torch ops.
 //
 // Bound.  The least work is reading each input container once and
 // writing each output container once: USM at 4 x 1080 x 1920 moves
-// 2 B in + 2 B out per pixel, 33 MB, i.e. about 10 us at 3.35 TB/s.
-// This kernel moves far more: each stage tile is written to and read
-// back from the workspace as 8-byte slots (L2 absorbs part of it), and
-// every tap and every postfix op is decoded from the tables per pixel.
-// Keeping tiles on chip — column tiling, narrow containers in shared
-// memory, cp.async/TMA double buffering of input bands (the Hopper form
-// of `_fused_kernel_prefetch`) — is the planned redesign.
+// 2 B in + 2 B out per pixel, 33 MB, about 10 us at 3.35 TB/s.  The
+// kernel is an interpreter, so what bounds it is the latency of each
+// warp's walk through a stage's program: per tap, a descriptor, two map
+// loads, four tile loads and the multiply-adds, one tap after another,
+// with a barrier between stages.  The design cuts the walks (one pass
+// of a stage per 1,024 pixels, taken once per 4 pixels) and keeps three
+// blocks on an SM to hide their latency.
+//
+// Design (what keeps it near the data instead of the tables):
+//  * Work items are (image, band step i, column tile j).  The encoder's
+//    column-span pass gives each stage a tile of L rows x CW columns;
+//    tile column c of a stage holds column clip(j*cstep + clo + c, 0,
+//    W-1), as tile rows hold rows_abs.  Every stage tile that another
+//    stage reads lives in shared memory in its container (u8 ... i64,
+//    f64), at the encoder's offset; an output no stage reads goes
+//    straight to global memory.  A tile too large for shared memory
+//    (a tall single-tile island) has a per-block global slot instead,
+//    or, for an input, is read in place: the same code path, through
+//    a per-stage base pointer.
+//  * A persistent grid (SMs x resident blocks) walks contiguous runs of
+//    work items, so one block's consecutive items are neighbouring
+//    column tiles of one band and the L2 serves their halos.  While a
+//    block computes item k, the input bands of item k+1 are in flight
+//    into the second shared slot with cp.async (commit / wait groups):
+//    the Hopper form of `_fused_kernel_prefetch`.  A band is copied as
+//    the 16-byte chunks covering the box rows [b, b+L) x columns
+//    [cb, cb+min(CW, W)), with b = clip(start, 0, H-L) as eval_band
+//    clamps it and cb the same clamp on columns, so every chunk lies in
+//    the image; the edge-replicate clamps and each row's misalignment
+//    are folded into the index maps.
+//  * The tables are copied into shared memory once per block.  Per work
+//    item, each warp fills int32 index maps: for each (stage, parent,
+//    dy) the byte offset of the parent row each of the stage's L rows
+//    reads, for each (stage, parent, dx) the byte offset of the column
+//    each of its CW columns reads, and the lattice residues of stages
+//    with per-residue bounds.  No division runs per pixel, and all
+//    coordinates are int32 (the encoder rejects images whose byte
+//    offsets overflow it).
+//  * A thread evaluates a quad: 4 neighbouring columns of one tile row.
+//    A tap's descriptor (parent, maps, weight, container) is decoded
+//    once for the quad; the quad's row offset is one map load and its 4
+//    column offsets one 16-byte load, then 4 tile loads.  Consecutive
+//    threads take consecutive quads, so a warp's map, tile and output
+//    accesses are consecutive.  Expression programs run once per quad
+//    on a 4-entry register stack per pixel; integer stages whose int32
+//    carrier the lowering proved accumulate in int32.  The encoder
+//    picks the column tile that minimizes block-wide passes (a stage's
+//    quads over 256 threads) per band, within the shared memory that
+//    keeps three blocks on an SM.
 //
 // Bit-exactness rules (each mirrored in the plain version):
 //  * Floor division in the tap algebra: the source row is
 //    clip(floor((rows_abs*sy + dy)/uy) - p_start, 0, pL-1) and the column
-//    clip(floor((x*sx + dx)/ux), 0, pW-1); rows_abs*sy+dy is negative at
-//    the top edge and p_start = i*step + lo is negative at band 0, where
-//    C's truncating `/` differs whenever uy > 1.  See floordiv().
+//    clip(clip(floor((x*sx + dx)/ux), 0, pW-1) - pc_start, 0, pCW-1);
+//    rows_abs*sy+dy is negative at the top edge and p_start = i*step + lo
+//    is negative at band 0, where C's truncating `/` differs whenever
+//    uy > 1.  See floordiv().
 //  * Input rows: the band is loaded at b = clip(start, 0, H-L) and
 //    reordered by clip(start + r, 0, H-1) - b, i.e. tile row r is input
 //    row clip(start + r, 0, H-1).  Compute stages use the same rows_abs.
@@ -42,14 +75,16 @@
 //    p - ((p >> t) << t).  `>>` on a negative int64 is an arithmetic
 //    shift on every CUDA target (shr.s64); shifts of negative values are
 //    written as multiplies, which C++17 defines.
-//  * Carriers: every integer stage accumulates in int64.  That is
-//    bit-equal to the int32 and int32-pair carriers the lowering elects,
-//    because lowering.ir._plan_intlinear elects them only after proving
-//    no partial sum overflows them.  The non-dyadic finish is one
-//    rint((double)acc * cscale).
+//  * Carriers: an integer stage accumulates in int32 where the lowering
+//    elected the int32 carrier (F_ACC32), else in int64.  Both are
+//    bit-equal to the reference's int32 / int32-pair carriers, because
+//    lowering.ir._plan_intlinear elects those only after proving no
+//    partial sum (nor a dyadic finish) overflows them.  The finish runs
+//    in int64; the non-dyadic one is one rint((double)acc * cscale).
 //  * Saturation per lattice residue: bounds are looked up by
 //    (rows_abs % my, x % mx); residues missing from the table keep the
-//    union bounds; a later entry for the same residue wins.
+//    union bounds; a later entry for the same residue wins (the encoder
+//    resolves that into one phase row per residue).
 //  * snap_expr: float-stored stages snap clip(rint(raw*2^b))/2^b; stages
 //    whose phases mix betas build the per-residue float composite;
 //    otherwise rint(raw*2^b), clip, integer store.
@@ -59,7 +94,9 @@
 //    where fmin/fmax drop it, so they are written out; x**2 is x*x;
 //    `/` and sqrt are IEEE-rounded in double.
 //  * Containers: loads decode the code-selected container (u8 ... i64,
-//    f64); stores cast after the clip.  Output rows >= H are masked.
+//    f64); stores cast after the clip, into tiles and outputs alike, so
+//    a narrow tile is lossless.  Output rows >= H and columns >= W (the
+//    ragged last band and tile) are masked.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -70,15 +107,31 @@ namespace {
 // FIELDS-BEGIN
 enum Field {
   F_KIND, F_STEP, F_LO, F_L, F_H, F_W, F_SY, F_SX, F_UY, F_UX,
-  F_CODE, F_IN_SLOT, F_OUT_SLOT, F_WS_OFF, F_IS_FLOAT,
+  F_CODE, F_IN_SLOT, F_OUT_SLOT, F_IS_FLOAT,
   F_TAP_BEGIN, F_TAP_COUNT, F_DYADIC, F_SM, F_T_SHIFT,
   F_INT_MIN, F_INT_MAX, F_PH_BEGIN, F_PH_COUNT, F_MY, F_MX,
   F_PROG_BEGIN, F_PROG_LEN, F_SNAP, F_FBASE,
+  F_CSTEP, F_CLO, F_CW, F_PLACE, F_TILE_OFF, F_PITCH, F_ESIZE,
+  F_RES_BEGIN, F_RRES, F_CRES, F_ACC32,
   NF
 };
 // FIELDS-END
 
+// The launch's scalars; the same names in the same order as LAYOUT in
+// kernel.py.  o_*: offsets (int64 words) of the tables in `meta`;
+// s_*: byte offsets in shared memory.
+// LAYOUT-BEGIN
+enum Layout {
+  L_N_META, L_O_STAGES, L_O_TAPS, L_O_PHASES, L_O_PROG, L_O_RMAPS,
+  L_O_CMAPS, L_O_RESMAP, L_O_FCONST, L_N_STAGES, L_N_RMAPS,
+  L_N_CMAPS, L_S_SBASE, L_S_ROWMAPS, L_S_COLMAPS, L_IN_STRIDE,
+  L_SMEM_BYTES, L_NTILES,
+  NL
+};
+// LAYOUT-END
+
 enum Kind { KIND_INPUT = 0, KIND_INTLINEAR = 1, KIND_EXPR = 2 };
+enum Place { PLACE_SHARED = 0, PLACE_GLOBAL = 1, PLACE_NONE = 2 };
 enum Snap { SNAP_INT = 0, SNAP_FLOAT = 1, SNAP_MIXED = 2, SNAP_RAW = 3 };
 enum Op {
   OP_REF, OP_CONST, OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_SQR, OP_ABS, OP_SQRT,
@@ -86,31 +139,36 @@ enum Op {
 };
 enum FConst { FC_STEP, FC_INV_STEP, FC_MIN, FC_MAX, FC_CSCALE };
 
-constexpr int MAX_STACK = 32;
+constexpr int MAX_STACK = 4;  // the expression stack, in registers
+constexpr int PX = 4;         // a quad: the columns a thread evaluates
 constexpr int MAX_IO = 32;
+constexpr int TAPW = 8;       // see TAPW in kernel.py
+constexpr int THREADS = 256;
 
 struct Params {
-  const int64_t* stages;   // (n_stages, NF)
-  const int64_t* taps;     // (n_taps, 4): parent, dy, dx, weight
-  const int64_t* phases;   // (n_res, 5): ry, rx, qmin, qmax, fbase
-  const int64_t* prog;     // (n_ops, 4): opcode, a, b, c
-  const double* fconst;
-  int64_t* ws;             // blocks x ws_per_block slots of 8 bytes
+  const int64_t* meta;        // every table, see EncodedProgram.meta()
+  int lay[NL];
+  char* ws;                   // blocks x ws_per_block bytes (global tiles)
   int64_t ws_per_block;
-  int n_stages;
   int batch;
-  int64_t nbands;
+  int nbands;
   const void* in[MAX_IO];
   void* out[MAX_IO];
 };
 
-__device__ __forceinline__ int64_t floordiv(int64_t a, int64_t b) {
+__device__ __forceinline__ int floordiv(int a, int b) {
   // b > 0 (a sampling rate); C's `/` truncates toward zero
-  int64_t q = a / b;
+  if (b == 1) return a;
+  int q = a / b;
   return (a % b != 0 && a < 0) ? q - 1 : q;
 }
 
-__device__ __forceinline__ int64_t clampi(int64_t v, int64_t lo, int64_t hi) {
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+__device__ __forceinline__ int64_t clampl(int64_t v, int64_t lo,
+                                          int64_t hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
@@ -129,237 +187,543 @@ __device__ __forceinline__ int64_t rhe_shift(int64_t p, int64_t t) {
   return base + (inc ? 1 : 0);
 }
 
-__device__ __forceinline__ int64_t load_int(const void* p, int64_t code,
-                                            int64_t k) {
-  switch (code) {
-    case 0: return ((const uint8_t*)p)[k];
-    case 1: return ((const int8_t*)p)[k];
-    case 2: return ((const uint16_t*)p)[k];
-    case 3: return ((const int16_t*)p)[k];
-    case 4: return ((const uint32_t*)p)[k];
-    case 5: return ((const int32_t*)p)[k];
-    default: return ((const int64_t*)p)[k];
-  }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(src) : "memory");
 }
 
-__device__ __forceinline__ void store_int(void* p, int64_t code, int64_t k,
-                                          int64_t v) {
-  switch (code) {
-    case 0: ((uint8_t*)p)[k] = (uint8_t)v; break;
-    case 1: ((int8_t*)p)[k] = (int8_t)v; break;
-    case 2: ((uint16_t*)p)[k] = (uint16_t)v; break;
-    case 3: ((int16_t*)p)[k] = (int16_t)v; break;
-    case 4: ((uint32_t*)p)[k] = (uint32_t)v; break;
-    case 5: ((int32_t*)p)[k] = (int32_t)v; break;
-    default: ((int64_t*)p)[k] = v; break;
-  }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-struct Band {
+__device__ __forceinline__ void cp_async_wait_prev() {
+  // every group but the one committed last has landed
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+struct Item {
+  int img, i, j;              // image, band step, column tile
+};
+
+// The first column of the box an input band is copied as.
+__device__ __forceinline__ int box_col(const int64_t* d, int j) {
+  int W = (int)d[F_W];
+  int bw = min((int)d[F_CW], W);
+  return clampi(j * (int)d[F_CSTEP] + (int)d[F_CLO], 0, W - bw);
+}
+
+// Everything one block shares: the tables (in shared memory, read
+// through pointers and scalars kept in registers) and the per-item state.
+struct Block {
   const Params& P;
-  const int64_t* ws;  // this block's workspace
-  int64_t img;
-  int64_t i;          // band step
+  unsigned char* smem;
+  const int64_t* stages;
+  const int64_t* taps;
+  const int64_t* phases;
+  const int64_t* prog;
+  const int64_t* rmaps;
+  const int64_t* cmaps;
+  const int64_t* resmap;
+  const double* fc;
+  char** sbase;               // tile base pointer per stage, this item
+  int* rowmaps;
+  int* colmaps;
+  int n_stages, n_rmaps, n_cmaps, ntiles, nbands, in_stride;
 
-  // the 8-byte slot of parent stage `p` at band-tile row `src`, column `col`
-  __device__ __forceinline__ int64_t slot(int p, int64_t src,
-                                          int64_t col) const {
-    const int64_t* pd = P.stages + (int64_t)p * NF;
-    if (pd[F_KIND] == KIND_INPUT) {
-      int64_t H = pd[F_H], W = pd[F_W];
-      int64_t row = clampi(i * pd[F_STEP] + pd[F_LO] + src, 0, H - 1);
-      int64_t k = (img * H + row) * W + col;
-      const void* base = P.in[pd[F_IN_SLOT]];
-      if (pd[F_CODE] == 7) return ((const int64_t*)base)[k];  // f64 bits
-      return load_int(base, pd[F_CODE], k);
+  __device__ Block(const Params& P_, unsigned char* smem_)
+      : P(P_), smem(smem_) {
+    const int64_t* meta = (const int64_t*)smem;
+    stages = meta + P.lay[L_O_STAGES];
+    taps = meta + P.lay[L_O_TAPS];
+    phases = meta + P.lay[L_O_PHASES];
+    prog = meta + P.lay[L_O_PROG];
+    rmaps = meta + P.lay[L_O_RMAPS];
+    cmaps = meta + P.lay[L_O_CMAPS];
+    resmap = meta + P.lay[L_O_RESMAP];
+    fc = (const double*)(meta + P.lay[L_O_FCONST]);
+    sbase = (char**)(smem + P.lay[L_S_SBASE]);
+    rowmaps = (int*)(smem + P.lay[L_S_ROWMAPS]);
+    colmaps = (int*)(smem + P.lay[L_S_COLMAPS]);
+    n_stages = P.lay[L_N_STAGES];
+    n_rmaps = P.lay[L_N_RMAPS];
+    n_cmaps = P.lay[L_N_CMAPS];
+    ntiles = P.lay[L_NTILES];
+    nbands = P.nbands;
+    in_stride = P.lay[L_IN_STRIDE];
+  }
+
+  __device__ const int64_t* stage(int s) const { return stages + s * NF; }
+
+  __device__ Item item(int64_t q) const {
+    int64_t band = q / ntiles;
+    Item it;
+    it.j = (int)(q - band * ntiles);
+    it.i = (int)(band % nbands);
+    it.img = (int)(band / nbands);
+    return it;
+  }
+
+  __device__ const char* image(const int64_t* d, int img) const {
+    return (const char*)P.in[d[F_IN_SLOT]] +
+           (int64_t)img * d[F_H] * d[F_W] * d[F_ESIZE];
+  }
+
+  // start the cp.async copies of item q's input bands into slot `slot`
+  __device__ void prefetch(int64_t q, int slot) const {
+    Item it = item(q);
+    for (int s = 0; s < n_stages; ++s) {
+      const int64_t* d = stage(s);
+      if (d[F_KIND] != KIND_INPUT || d[F_PLACE] != PLACE_SHARED) continue;
+      int H = (int)d[F_H], W = (int)d[F_W], L = (int)d[F_L];
+      int es = (int)d[F_ESIZE], pitch = (int)d[F_PITCH];
+      int b = clampi(it.i * (int)d[F_STEP] + (int)d[F_LO], 0, H - L);
+      int cb = box_col(d, it.j);
+      int rowbytes = min((int)d[F_CW], W) * es;
+      int nch = pitch / 16;
+      const char* src = image(d, it.img) + ((int64_t)b * W + cb) * es;
+      char* dst = (char*)smem + d[F_TILE_OFF] + slot * in_stride;
+      for (int k = threadIdx.x; k < L * nch; k += blockDim.x) {
+        int r = k / nch, ch = k - r * nch;
+        uintptr_t g = (uintptr_t)(src + (int64_t)r * W * es);
+        uintptr_t a = (g & ~(uintptr_t)15) + 16 * ch;
+        if (a < g + rowbytes)
+          cp_async16(dst + r * pitch + 16 * ch, (const void*)a);
+      }
     }
-    return ws[pd[F_WS_OFF] + src * pd[F_W] + col];
   }
 
-  // tap (parent p, dy, dx) of output pixel (rows_abs, x) of stage d
-  __device__ __forceinline__ int64_t tap(const int64_t* d, int p, int64_t dy,
-                                         int64_t dx, int64_t rows_abs,
-                                         int64_t x) const {
-    const int64_t* pd = P.stages + (int64_t)p * NF;
-    int64_t p_start = i * pd[F_STEP] + pd[F_LO];
-    int64_t src = clampi(floordiv(rows_abs * d[F_SY] + dy, d[F_UY]) - p_start,
-                         0, pd[F_L] - 1);
-    int64_t col = clampi(floordiv(x * d[F_SX] + dx, d[F_UX]), 0, pd[F_W] - 1);
-    return slot(p, src, col);
+  // stage base pointers and index maps of item `it` (inputs in `slot`)
+  __device__ void prepare(const Item& it, int slot) const {
+    for (int s = threadIdx.x; s < n_stages; s += blockDim.x) {
+      const int64_t* d = stage(s);
+      char* base = nullptr;
+      if (d[F_KIND] == KIND_INPUT) {
+        base = d[F_PLACE] == PLACE_SHARED
+                   ? (char*)smem + d[F_TILE_OFF] + slot * in_stride
+                   : (char*)image(d, it.img);
+      } else if (d[F_PLACE] == PLACE_SHARED) {
+        base = (char*)smem + d[F_TILE_OFF];
+      } else if (d[F_PLACE] == PLACE_GLOBAL) {
+        base = P.ws + blockIdx.x * P.ws_per_block + d[F_TILE_OFF];
+      }
+      sbase[s] = base;
+    }
+    // one warp a map; each map's constants are read into registers first
+    int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    int nwarps = blockDim.x / 32;
+    for (int m = warp; m < n_rmaps; m += nwarps) {
+      const int64_t* dc = stage((int)rmaps[4 * m]);
+      int p = (int)rmaps[4 * m + 1], dy = (int)rmaps[4 * m + 2];
+      int* out = rowmaps + rmaps[4 * m + 3];
+      int start = it.i * (int)dc[F_STEP] + (int)dc[F_LO];
+      int L = (int)dc[F_L], H1 = (int)dc[F_H] - 1;
+      int sy = (int)dc[F_SY], uy = (int)dc[F_UY];
+      int my = (int)dc[F_MY], mx = (int)dc[F_MX];
+      int p_start = 0, pL1 = 0, pH1 = 0, pitch = 0, b = 0;
+      int64_t rowbytes = 0;
+      bool input = false, shared = false;
+      uintptr_t g0 = 0;
+      if (p >= 0) {
+        const int64_t* dp = stage(p);
+        p_start = it.i * (int)dp[F_STEP] + (int)dp[F_LO];
+        pL1 = (int)dp[F_L] - 1;
+        pitch = (int)dp[F_PITCH];
+        input = dp[F_KIND] == KIND_INPUT;
+        shared = dp[F_PLACE] == PLACE_SHARED;
+        pH1 = (int)dp[F_H] - 1;
+        rowbytes = dp[F_W] * dp[F_ESIZE];
+        b = clampi(p_start, 0, pH1 + 1 - (int)dp[F_L]);
+        if (input && shared)   // where the box's first column lies
+          g0 = (uintptr_t)(image(dp, it.img) + box_col(dp, it.j) *
+                                                   dp[F_ESIZE]);
+      }
+      for (int r = lane; r < L; r += 32) {
+        int rows_abs = clampi(start + r, 0, H1);
+        int v;
+        if (p < 0) {          // the stage's own row residue
+          v = (rows_abs % my) * mx;
+        } else {
+          int src = clampi(floordiv(rows_abs * sy + dy, uy) - p_start, 0,
+                           pL1);
+          int row = clampi(p_start + src, 0, pH1);
+          if (!input)
+            v = src * pitch;
+          else if (!shared)
+            v = row * (int)rowbytes;
+          else                // box row, plus its chunks' misalignment
+            v = (row - b) * pitch + (int)((g0 + row * rowbytes) & 15);
+        }
+        out[r] = v;
+      }
+    }
+    for (int m = warp; m < n_cmaps; m += nwarps) {
+      const int64_t* dc = stage((int)cmaps[4 * m]);
+      int p = (int)cmaps[4 * m + 1], dx = (int)cmaps[4 * m + 2];
+      int* out = colmaps + cmaps[4 * m + 3];
+      int c0 = it.j * (int)dc[F_CSTEP] + (int)dc[F_CLO];
+      int n = ((int)dc[F_CW] + PX - 1) / PX * PX, W1 = (int)dc[F_W] - 1;
+      int sx = (int)dc[F_SX], ux = (int)dc[F_UX], mx = (int)dc[F_MX];
+      int pW1 = 0, es = 0, pc0 = 0, pCW1 = 0, cb = 0;
+      bool input = false;
+      if (p >= 0) {
+        const int64_t* dp = stage(p);
+        pW1 = (int)dp[F_W] - 1;
+        es = (int)dp[F_ESIZE];
+        pc0 = it.j * (int)dp[F_CSTEP] + (int)dp[F_CLO];
+        pCW1 = (int)dp[F_CW] - 1;
+        input = dp[F_KIND] == KIND_INPUT;
+        if (input && dp[F_PLACE] == PLACE_SHARED) cb = box_col(dp, it.j);
+      }
+      for (int c = lane; c < n; c += 32) {
+        int x = clampi(c0 + c, 0, W1);
+        int v;
+        if (p < 0) {          // the stage's own column residue
+          v = x % mx;
+        } else {
+          int f = clampi(floordiv(x * sx + dx, ux), 0, pW1);
+          int src = clampi(f - pc0, 0, pCW1);
+          v = input ? (clampi(pc0 + src, 0, pW1) - cb) * es : src * es;
+        }
+        out[c] = v;
+      }
+    }
   }
 
-  // the f64 stage value of a tap (dequantized unless float-stored)
-  __device__ __forceinline__ double tap_value(const int64_t* d, int p,
-                                              int64_t dy, int64_t dx,
-                                              int64_t rows_abs,
-                                              int64_t x) const {
-    const int64_t* pd = P.stages + (int64_t)p * NF;
-    int64_t v = tap(d, p, dy, dx, rows_abs, x);
-    if (pd[F_IS_FLOAT]) return __longlong_as_double(v);
-    return (double)v * P.fconst[pd[F_FBASE] + FC_INV_STEP];
+  // the 4 values of a quad's taps at byte offsets cols from `base`,
+  // widened to V
+  template <typename T, typename V>
+  __device__ __forceinline__ void gather_as(const char* base, int4 cols,
+                                            V* v) const {
+    v[0] = (V)*(const T*)(base + cols.x);
+    v[1] = (V)*(const T*)(base + cols.y);
+    v[2] = (V)*(const T*)(base + cols.z);
+    v[3] = (V)*(const T*)(base + cols.w);
+  }
+
+  // tap `t` (a taps row: parent, dy, dx, w, row map, column map, code)
+  // at the quad of row r, columns c0 .. c0+3: one row-map load, one
+  // 16-byte column-map load and four tile loads (code 7: f64 bits)
+  template <typename V>
+  __device__ __forceinline__ void gather(const int64_t* t, int r, int c0,
+                                         V* v) const {
+    const char* base = sbase[t[0]] + rowmaps[t[4] + r];
+    int4 cols = *(const int4*)(colmaps + t[5] + c0);
+    switch ((int)t[6]) {   // uniform: one container a parent
+      case 0: gather_as<uint8_t, V>(base, cols, v); break;
+      case 1: gather_as<int8_t, V>(base, cols, v); break;
+      case 2: gather_as<uint16_t, V>(base, cols, v); break;
+      case 3: gather_as<int16_t, V>(base, cols, v); break;
+      case 4: gather_as<uint32_t, V>(base, cols, v); break;
+      case 5: gather_as<int32_t, V>(base, cols, v); break;
+      default: gather_as<int64_t, V>(base, cols, v); break;
+    }
+  }
+
+  // the phase row of pixel (r, c) of stage d, or -1
+  __device__ __forceinline__ int phase_row(const int64_t* d, int r,
+                                           int c) const {
+    if (d[F_PH_COUNT] == 0) return -1;
+    return (int)resmap[d[F_RES_BEGIN] + rowmaps[d[F_RRES] + r] +
+                       colmaps[d[F_CRES] + c]];
   }
 
   // per-residue int saturation bounds (union bounds where none matches)
-  __device__ __forceinline__ void bounds(const int64_t* d, int64_t rows_abs,
-                                         int64_t x, int64_t* qmin,
+  __device__ __forceinline__ void bounds(const int64_t* d, int r, int c,
+                                         int64_t* qmin,
                                          int64_t* qmax) const {
     *qmin = d[F_INT_MIN];
     *qmax = d[F_INT_MAX];
-    int64_t my = d[F_MY], mx = d[F_MX];
-    for (int64_t e = 0; e < d[F_PH_COUNT]; ++e) {
-      const int64_t* r = P.phases + (d[F_PH_BEGIN] + e) * 5;
-      if (rows_abs % my == r[0] % my && x % mx == r[1] % mx) {
-        *qmin = r[2];
-        *qmax = r[3];
+    int e = phase_row(d, r, c);
+    if (e >= 0) {
+      const int64_t* ph = phases + 5 * e;
+      *qmin = ph[2];
+      *qmax = ph[3];
+    }
+  }
+
+  // an integer stage at a quad: each tap's descriptor is decoded once
+  // for its 4 pixels
+  __device__ void intlinear(const int64_t* d, int r, int c0,
+                            int64_t* out) const {
+    int64_t acc[PX] = {0, 0, 0, 0};
+    const int64_t* t = taps + d[F_TAP_BEGIN] * TAPW;
+    int n = (int)d[F_TAP_COUNT];
+    if (d[F_ACC32]) {         // int32 proved wide enough: bit-equal
+      int a32[PX] = {0, 0, 0, 0}, v[PX];
+      for (int j = 0; j < n; ++j, t += TAPW) {
+        gather(t, r, c0, v);
+        int w = (int)t[3];
+#pragma unroll
+        for (int m = 0; m < PX; ++m) a32[m] += w * v[m];
+      }
+#pragma unroll
+      for (int m = 0; m < PX; ++m) acc[m] = a32[m];
+    } else {
+      int64_t v[PX];
+      for (int j = 0; j < n; ++j, t += TAPW) {
+        gather(t, r, c0, v);
+        int64_t w = t[3];
+#pragma unroll
+        for (int m = 0; m < PX; ++m) acc[m] += w * v[m];
+      }
+    }
+    bool dyadic = d[F_DYADIC] != 0;
+    int64_t sm = d[F_SM], shift = d[F_T_SHIFT];
+    double cscale = fc[d[F_FBASE] + FC_CSCALE];
+#pragma unroll
+    for (int m = 0; m < PX; ++m) {
+      int64_t qmin, qmax;
+      bounds(d, r, c0 + m, &qmin, &qmax);
+      if (dyadic) {
+        out[m] = clampl(rhe_shift(sm != 1 ? acc[m] * sm : acc[m], shift),
+                        qmin, qmax);
+      } else {
+        double q = rint((double)acc[m] * cscale);
+        out[m] = (int64_t)clampd(q, (double)qmin, (double)qmax);
       }
     }
   }
 
-  __device__ int64_t intlinear(const int64_t* d, int64_t rows_abs,
-                               int64_t x) const {
-    int64_t acc = 0;
-    for (int64_t k = 0; k < d[F_TAP_COUNT]; ++k) {
-      const int64_t* t = P.taps + (d[F_TAP_BEGIN] + k) * 4;
-      acc += t[3] * tap(d, (int)t[0], t[1], t[2], rows_abs, x);
-    }
-    int64_t qmin, qmax;
-    bounds(d, rows_abs, x, &qmin, &qmax);
-    if (d[F_DYADIC]) {
-      int64_t q = rhe_shift(d[F_SM] != 1 ? acc * d[F_SM] : acc, d[F_T_SHIFT]);
-      return clampi(q, qmin, qmax);
-    }
-    double q = rint((double)acc * P.fconst[d[F_FBASE] + FC_CSCALE]);
-    return (int64_t)clampd(q, (double)qmin, (double)qmax);
+  __device__ __forceinline__ double snap_float(double raw,
+                                               const double* f) const {
+    return clampd(rint(raw * f[FC_STEP]), f[FC_MIN], f[FC_MAX]) /
+           f[FC_STEP];
   }
 
-  __device__ double snap_float(double raw, const double* fc) const {
-    return clampd(rint(raw * fc[FC_STEP]), fc[FC_MIN], fc[FC_MAX]) /
-           fc[FC_STEP];
-  }
-
-  // evaluate the postfix program; returns the stored 8-byte slot
-  __device__ int64_t expr(const int64_t* d, int64_t rows_abs,
-                          int64_t x) const {
-    double stk[MAX_STACK];
-    int sp = 0;
-    const int64_t* ins = P.prog + d[F_PROG_BEGIN] * 4;
-    for (int64_t k = 0; k < d[F_PROG_LEN]; ++k, ins += 4) {
-      double a, b, c;
-      switch (ins[0]) {
-        case OP_REF:
-          stk[sp++] = tap_value(d, (int)ins[1], ins[2], ins[3], rows_abs, x);
-          break;
-        case OP_CONST: stk[sp++] = P.fconst[ins[1]]; break;
-        case OP_SQR: a = stk[sp - 1]; stk[sp - 1] = a * a; break;
-        case OP_ABS: stk[sp - 1] = fabs(stk[sp - 1]); break;
-        case OP_SQRT: stk[sp - 1] = sqrt(stk[sp - 1]); break;
-        case OP_SELECT:
-          c = stk[--sp]; b = stk[--sp]; a = stk[sp - 1];
-          stk[sp - 1] = (a != 0.0) ? b : c;
-          break;
-        default:
-          b = stk[--sp]; a = stk[sp - 1];
-          switch (ins[0]) {
-            case OP_ADD: a = a + b; break;
-            case OP_SUB: a = a - b; break;
-            case OP_MUL: a = a * b; break;
-            case OP_DIV: a = a / b; break;
-            // NaN-propagating, as numpy.minimum / numpy.maximum
-            case OP_MIN: a = (a != a || a < b) ? a : b; break;
-            case OP_MAX: a = (a != a || a > b) ? a : b; break;
-            case OP_LT: a = (a < b) ? 1.0 : 0.0; break;
-            case OP_LE: a = (a <= b) ? 1.0 : 0.0; break;
-            case OP_GT: a = (a > b) ? 1.0 : 0.0; break;
-            case OP_GE: a = (a >= b) ? 1.0 : 0.0; break;
-          }
-          stk[sp - 1] = a;
-      }
-    }
-    double raw = stk[0];
-    const double* fc = P.fconst + d[F_FBASE];
-    switch (d[F_SNAP]) {
-      case SNAP_RAW: return __double_as_longlong(raw);
-      case SNAP_FLOAT: return __double_as_longlong(snap_float(raw, fc));
-      case SNAP_MIXED: {
-        double out = snap_float(raw, fc);
-        int64_t my = d[F_MY], mx = d[F_MX];
-        for (int64_t e = 0; e < d[F_PH_COUNT]; ++e) {
-          const int64_t* r = P.phases + (d[F_PH_BEGIN] + e) * 5;
-          if (rows_abs % my == r[0] % my && x % mx == r[1] % mx)
-            out = snap_float(raw, P.fconst + r[4]);
+  // an expression stage at a quad: the postfix program runs once on a
+  // register stack of MAX_STACK entries per pixel (s[0] the top; a push
+  // shifts down, a pop shifts up, so every index is static); returns the
+  // stored values (f64 bits for float-stored stages)
+  __device__ void expr(const int64_t* d, int r, int c0, int64_t* out) const {
+    double s[MAX_STACK][PX];
+    int64_t v[PX];
+    const int64_t* ins = prog + d[F_PROG_BEGIN] * TAPW;
+    for (int k = 0; k < d[F_PROG_LEN]; ++k, ins += TAPW) {
+      int op = (int)ins[0];
+      if (op == OP_REF || op == OP_CONST) {
+#pragma unroll
+        for (int j = MAX_STACK - 1; j > 0; --j)
+#pragma unroll
+          for (int m = 0; m < PX; ++m) s[j][m] = s[j - 1][m];
+        if (op == OP_CONST) {
+          double x = fc[ins[1]];
+#pragma unroll
+          for (int m = 0; m < PX; ++m) s[0][m] = x;
+          continue;
         }
-        return __double_as_longlong(out);
+        gather(ins + 1, r, c0, v);
+        if (ins[7] == 7) {          // a float-stored parent
+#pragma unroll
+          for (int m = 0; m < PX; ++m) s[0][m] = __longlong_as_double(v[m]);
+        } else {
+          double inv = fc[stage((int)ins[1])[F_FBASE] + FC_INV_STEP];
+#pragma unroll
+          for (int m = 0; m < PX; ++m) s[0][m] = (double)v[m] * inv;
+        }
+        continue;
       }
-      default: {
-        int64_t qmin, qmax;
-        bounds(d, rows_abs, x, &qmin, &qmax);
-        double q = rint(raw * fc[FC_STEP]);
-        return (int64_t)clampd(q, (double)qmin, (double)qmax);
+#define EACH(expr_)                                  \
+  _Pragma("unroll") for (int m = 0; m < PX; ++m) {   \
+    double a = s[1][m], b = s[0][m];                 \
+    (void)a;                                         \
+    s[0][m] = (expr_);                               \
+  }                                                  \
+  break;
+      switch (op) {
+        case OP_SQR: EACH(b * b)
+        case OP_ABS: EACH(fabs(b))
+        case OP_SQRT: EACH(sqrt(b))
+        case OP_ADD: EACH(a + b)
+        case OP_SUB: EACH(a - b)
+        case OP_MUL: EACH(a * b)
+        case OP_DIV: EACH(a / b)
+        // NaN-propagating, as numpy.minimum / numpy.maximum
+        case OP_MIN: EACH((a != a || a < b) ? a : b)
+        case OP_MAX: EACH((a != a || a > b) ? a : b)
+        case OP_LT: EACH((a < b) ? 1.0 : 0.0)
+        case OP_LE: EACH((a <= b) ? 1.0 : 0.0)
+        case OP_GT: EACH((a > b) ? 1.0 : 0.0)
+        case OP_GE: EACH((a >= b) ? 1.0 : 0.0)
+        default: EACH((s[2][m] != 0.0) ? a : b)   // OP_SELECT
+      }
+#undef EACH
+      if (op == OP_SQR || op == OP_ABS || op == OP_SQRT) continue;
+      int pops = op == OP_SELECT ? 2 : 1;
+#pragma unroll
+      for (int j = 1; j < MAX_STACK - 1; ++j)
+#pragma unroll
+        for (int m = 0; m < PX; ++m)
+          s[j][m] = pops == 2 && j + 2 < MAX_STACK ? s[j + 2][m]
+                                                    : s[j + 1][m];
+    }
+    const double* f = fc + d[F_FBASE];
+    int snap = (int)d[F_SNAP];
+#pragma unroll
+    for (int m = 0; m < PX; ++m) {
+      double raw = s[0][m];
+      switch (snap) {
+        case SNAP_RAW: out[m] = __double_as_longlong(raw); break;
+        case SNAP_FLOAT:
+          out[m] = __double_as_longlong(snap_float(raw, f));
+          break;
+        case SNAP_MIXED: {
+          int e = phase_row(d, r, c0 + m);
+          out[m] = __double_as_longlong(
+              snap_float(raw, e >= 0 ? fc + phases[5 * e + 4] : f));
+          break;
+        }
+        default: {
+          int64_t qmin, qmax;
+          bounds(d, r, c0 + m, &qmin, &qmax);
+          double q = rint(raw * f[FC_STEP]);
+          out[m] = (int64_t)clampd(q, (double)qmin, (double)qmax);
+        }
+      }
+    }
+  }
+
+  // a quad's values m in [mb, me) into row `row` at columns c0 + m, cast
+  // into the container (code 7: the f64's bits)
+  template <typename T>
+  __device__ __forceinline__ static void put_as(char* row, int c0, int mb,
+                                                int me, const int64_t* v) {
+    T* p = (T*)row + c0;
+#pragma unroll
+    for (int m = 0; m < PX; ++m)
+      if (m >= mb && m < me) p[m] = (T)v[m];
+  }
+
+  __device__ __forceinline__ static void put(char* row, int code, int c0,
+                                             int mb, int me,
+                                             const int64_t* v) {
+    switch (code) {
+      case 0: put_as<uint8_t>(row, c0, mb, me, v); break;
+      case 1: put_as<int8_t>(row, c0, mb, me, v); break;
+      case 2: put_as<uint16_t>(row, c0, mb, me, v); break;
+      case 3: put_as<int16_t>(row, c0, mb, me, v); break;
+      case 4: put_as<uint32_t>(row, c0, mb, me, v); break;
+      case 5: put_as<int32_t>(row, c0, mb, me, v); break;
+      default: put_as<int64_t>(row, c0, mb, me, v); break;
+    }
+  }
+
+  // every pixel of stage s's tile of item `it`: into its tile, and the
+  // output window [-lo, -lo+step) x [-clo, -clo+cstep) into its output.
+  // A thread takes a quad of 4 neighbouring columns of one tile row at a
+  // time; a block's threads take consecutive quads.
+  __device__ void run_stage(int s, const Item& it) const {
+    const int64_t* d = stage(s);
+    int L = (int)d[F_L], CW = (int)d[F_CW];
+    int H = (int)d[F_H], W = (int)d[F_W];
+    int lo = (int)d[F_LO], step = (int)d[F_STEP];
+    int clo = (int)d[F_CLO], cstep = (int)d[F_CSTEP];
+    int code = (int)d[F_CODE], es = (int)d[F_ESIZE];
+    int pitch = (int)d[F_PITCH];
+    int row0 = it.i * step + lo, col0 = it.j * cstep + clo;
+    bool lin = d[F_KIND] == KIND_INTLINEAR;
+    char* tile = sbase[s];
+    char* out = d[F_OUT_SLOT] < 0
+                    ? nullptr
+                    : (char*)P.out[d[F_OUT_SLOT]] + (int64_t)it.img * H * W * es;
+    // output columns of this tile: [c_lo, c_hi) of the tile
+    int c_lo = max(-clo, 0), c_hi = min(-clo + cstep, W - col0);
+    int nq = (CW + PX - 1) / PX;                  // quads a row
+    int dr = blockDim.x / nq, dq = blockDim.x % nq;
+    int r = threadIdx.x / nq, q = threadIdx.x % nq;
+    for (int k = threadIdx.x; k < L * nq; k += blockDim.x) {
+      int c0 = q * PX;
+      int64_t v[PX];
+      if (lin)
+        intlinear(d, r, c0, v);
+      else
+        expr(d, r, c0, v);
+      if (tile) put(tile + r * pitch, code, c0, 0, CW - c0, v);
+      int orow = r + lo, grow = row0 + r;
+      if (out && orow >= 0 && orow < step && grow < H)
+        put(out + (grow * W + col0) * es, code, c0, c_lo - c0, c_hi - c0, v);
+      r += dr;
+      q += dq;
+      if (q >= nq) {
+        q -= nq;
+        ++r;
       }
     }
   }
 };
 
-// __grid_constant__: Band keeps a reference to P without a local copy
-__global__ void fused_band_kernel(const __grid_constant__ Params P) {
-  int64_t* ws = P.ws + (int64_t)blockIdx.x * P.ws_per_block;
-  int64_t n_items = (int64_t)P.batch * P.nbands;
-  for (int64_t item = blockIdx.x; item < n_items; item += gridDim.x) {
-    Band band{P, ws, item / P.nbands, item % P.nbands};
-    for (int s = 0; s < P.n_stages; ++s) {
-      const int64_t* d = P.stages + (int64_t)s * NF;
-      if (d[F_KIND] == KIND_INPUT) continue;      // read in place by taps
-      int64_t L = d[F_L], H = d[F_H], W = d[F_W];
-      int64_t step = d[F_STEP], lo = d[F_LO];
-      int64_t start = band.i * step + lo;
-      int64_t out_slot = d[F_OUT_SLOT];
-      for (int64_t k = threadIdx.x; k < L * W; k += blockDim.x) {
-        int64_t r = k / W, x = k - r * W;
-        int64_t rows_abs = clampi(start + r, 0, H - 1);
-        int64_t v = d[F_KIND] == KIND_INTLINEAR ? band.intlinear(d, rows_abs, x)
-                                                : band.expr(d, rows_abs, x);
-        ws[d[F_WS_OFF] + k] = v;
-        // band_output: tile rows [-lo, -lo + step) are output rows
-        // i*step + [0, step); mask the ragged rows past H
-        int64_t orow = r + lo;
-        int64_t grow = start + r;
-        if (out_slot >= 0 && orow >= 0 && orow < step && grow < H) {
-          int64_t o = (band.img * H + grow) * W + x;
-          if (d[F_CODE] == 7)
-            ((int64_t*)P.out[out_slot])[o] = v;   // f64 bits
-          else
-            store_int(P.out[out_slot], d[F_CODE], o, v);
-        }
-      }
-      __syncthreads();   // the next stage (or work item) reads this tile
+// three blocks an SM (at most 85 registers a thread; SMEM_LIMIT in
+// kernel.py keeps shared memory to match)
+__global__ void __launch_bounds__(THREADS, 3)
+    fused_band_kernel(const __grid_constant__ Params P) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int64_t* meta = (int64_t*)smem;
+  for (int k = threadIdx.x; k < P.lay[L_N_META]; k += blockDim.x)
+    meta[k] = P.meta[k];
+  Block blk(P, smem);
+  __syncthreads();
+  // a contiguous run of work items: neighbouring column tiles of a band
+  int64_t n_items = (int64_t)P.batch * P.nbands * P.lay[L_NTILES];
+  int64_t first = n_items * blockIdx.x / gridDim.x;
+  int64_t last = n_items * (blockIdx.x + 1) / gridDim.x;
+  if (first < last) blk.prefetch(first, 0);
+  cp_async_commit();
+  for (int64_t q = first; q < last; ++q) {
+    int slot = (int)((q - first) & 1);
+    if (q + 1 < last) blk.prefetch(q + 1, slot ^ 1);
+    cp_async_commit();
+    cp_async_wait_prev();     // this thread's copies of item q landed
+    Item it = blk.item(q);
+    blk.prepare(it, slot);
+    __syncthreads();          // everyone's copies, maps and bases
+    for (int s = 0; s < blk.n_stages; ++s) {
+      if (blk.stage(s)[F_KIND] == KIND_INPUT) continue;
+      blk.run_stage(s, it);
+      __syncthreads();        // the next stage (or item) reads this tile
     }
   }
 }
 
 }  // namespace
 
+// The kernel's residency at `smem_bytes` of dynamic shared memory:
+// out[0] blocks per SM, out[1] SMs, out[2] registers a thread, out[3]
+// local bytes a thread.  Returns a CUDA error code (0 on success).
+extern "C" int fused_band_occupancy(int smem_bytes, int threads, int* out) {
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_band_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0],
+                                                    fused_band_kernel,
+                                                    threads, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  e = cudaDeviceGetAttribute(&out[1], cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, fused_band_kernel);
+  out[2] = fa.numRegs;
+  out[3] = (int)fa.localSizeBytes;
+  return (int)e;
+}
+
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  `ins`
-// and `outs` are host arrays of device pointers; the kernel allocates
-// nothing and does not synchronize.
-extern "C" int fused_band_launch(const int64_t* stages, int n_stages,
-                                 const int64_t* taps, const int64_t* phases,
-                                 const int64_t* prog, const double* fconst,
+// and `outs` are host arrays of device pointers, `layout` the NL
+// scalars; the kernel allocates nothing and does not synchronize.
+extern "C" int fused_band_launch(const int64_t* meta, const int* layout,
                                  const void* const* ins, int n_in,
-                                 void* const* outs, int n_out, int64_t* ws,
-                                 int64_t ws_per_block, int batch,
-                                 int64_t nbands, int blocks, int threads,
-                                 void* stream) {
-  if (n_in > MAX_IO || n_out > MAX_IO || blocks < 1)
+                                 void* const* outs, int n_out, char* ws,
+                                 int64_t ws_per_block, int batch, int nbands,
+                                 int blocks, int threads, void* stream) {
+  if (n_in > MAX_IO || n_out > MAX_IO || blocks < 1 || threads != THREADS)
     return (int)cudaErrorInvalidValue;
   Params P;
-  P.stages = stages;
-  P.taps = taps;
-  P.phases = phases;
-  P.prog = prog;
-  P.fconst = fconst;
+  P.meta = meta;
+  for (int k = 0; k < NL; ++k) P.lay[k] = layout[k];
   P.ws = ws;
   P.ws_per_block = ws_per_block;
-  P.n_stages = n_stages;
   P.batch = batch;
   P.nbands = nbands;
   for (int k = 0; k < MAX_IO; ++k) {
@@ -367,6 +731,10 @@ extern "C" int fused_band_launch(const int64_t* stages, int n_stages,
     P.out[k] = k < n_out ? outs[k] : nullptr;
   }
   (void)cudaGetLastError();   // report this launch's error, not an older one
-  fused_band_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(P);
+  int smem = P.lay[L_SMEM_BYTES];
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_band_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  fused_band_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(P);
   return (int)cudaGetLastError();
 }

@@ -3,8 +3,9 @@ plain version, wrapper) and the single-stage fixed-point stencil.
 
 The band kernel replaces the TPU kernel
 `repro/kernels/stencil/kernel.py:fused_pipeline` (`_fused_kernel`,
-`eval_band`, `band_output`; `pallas_call` at line 321).  One call runs one rate island over every (image, band) of its
-schedule: it loads each input's rows of the band with edge-replicate
+`_fused_kernel_prefetch`, `eval_band`, `band_output`; `pallas_call` at
+line 321).  One call runs one rate island over every (image, band) of
+its schedule: it loads each input's rows of the band with edge-replicate
 clamps, evaluates every compute stage of the island on the band through
 clamped tap gathers, and writes rows ``[-lo, -lo + step)`` of the
 island's output stages in their legalized containers.
@@ -12,9 +13,14 @@ island's output stages in their legalized containers.
 The island is not compiled into code.  `encode_program` flattens the
 island's stage descriptors (`lowering.cuda_backend.island_program`) into
 int64 / f64 tables, and one CUDA source, `csrc/fused_band.cu`,
-interprets them.  The same tables drive `fused_pipeline_reference`, the
-plain PyTorch version, so the CPU tests check the encoder and every
-datapath rule and only the CUDA transcription is left for the card.
+interprets them.  The encoder also cuts each band into column tiles (a
+backward column-span pass, the counterpart of the row pass of
+`lowering.schedule`) and lays out one block's shared memory: the tables,
+per-item index maps, every stage tile in its container, and two slots
+for the input bands.  The same tables drive `fused_pipeline_reference`,
+the plain PyTorch version, whole-width or tile by tile, so the CPU tests
+check the encoder, the column geometry and every datapath rule, and only
+the CUDA transcription is left for the card.
 
 `fused_pipeline` is the wrapper: on CPU tensors it runs the plain
 version, on CUDA tensors it launches the kernel or raises, and it counts
@@ -30,6 +36,8 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import threading
+from fractions import Fraction
+from math import lcm
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -41,13 +49,24 @@ from repro_torch.lowering.ir import LoweringError
 # Columns of the per-stage table; `csrc/fused_band.cu` declares the same
 # names in the same order (tests/test_torch_kernels.py checks it).
 FIELDS = ("kind", "step", "lo", "L", "H", "W", "sy", "sx", "uy", "ux",
-          "code", "in_slot", "out_slot", "ws_off", "is_float",
+          "code", "in_slot", "out_slot", "is_float",
           "tap_begin", "tap_count", "dyadic", "sm", "t_shift",
           "int_min", "int_max", "ph_begin", "ph_count", "my", "mx",
-          "prog_begin", "prog_len", "snap", "fbase")
+          "prog_begin", "prog_len", "snap", "fbase",
+          "cstep", "clo", "CW", "place", "tile_off", "pitch", "esize",
+          "res_begin", "rres", "cres", "acc32")
 NF = len(FIELDS)
+# the launch's scalars, in the order of the kernel's `Layout` enum
+LAYOUT = ("n_meta", "o_stages", "o_taps", "o_phases", "o_prog", "o_rmaps",
+          "o_cmaps", "o_resmap", "o_fconst", "n_stages", "n_rmaps",
+          "n_cmaps", "s_sbase", "s_rowmaps", "s_colmaps", "in_stride",
+          "smem_bytes", "ntiles")
 
 KIND_INPUT, KIND_INTLINEAR, KIND_EXPR = 0, 1, 2
+# where a stage's tile lives: shared memory; a per-block global slot (a
+# compute stage) or the input tensor itself (an input); nowhere (an
+# output that no stage of the island reads)
+PLACE_SHARED, PLACE_GLOBAL, PLACE_NONE = 0, 1, 2
 
 # container codes, in the order of the kernel's load/store switch
 CONTAINERS = (torch.uint8, torch.int8, torch.uint16, torch.int16,
@@ -57,9 +76,24 @@ CODE = {dt: k for k, dt in enumerate(CONTAINERS)}
 # postfix opcodes of an expression stage's program
 (OP_REF, OP_CONST, OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_SQR, OP_ABS, OP_SQRT,
  OP_MIN, OP_MAX, OP_LT, OP_LE, OP_GT, OP_GE, OP_SELECT) = range(16)
-MAX_STACK = 32      # the kernel's per-thread operand stack
+MAX_STACK = 4       # the kernel's operand stack, in registers
 MAX_IO = 32         # input and output tensors per launch, each
 THREADS = 256
+# taps rows: parent, dy, dx, weight, row-map offset, column-map offset,
+# the parent's container code, 0; program rows: opcode, a, b, c, 0 and,
+# for OP_REF, the two map offsets and the code — so an OP_REF row from
+# its second column reads as a taps row
+TAPW = 8
+# the widest column tile the encoder considers, and what one work item
+# costs beyond its stages, in block-wide passes (see `_item_passes`)
+MAX_COL_TILE = 256
+ITEM_PASSES = 4
+# dynamic shared memory of one block such that three blocks fit on an SM
+# (232,448 bytes a block at most, 233,472 an SM, 1 KB reserved a block),
+# as many as the kernel's registers allow (`__launch_bounds__`)
+SMEM_LIMIT = 233472 // 3 - 1024
+SMEM_MAX = 232448
+_I32_MAX = (1 << 31) - 1
 
 # Per-stage block of `fconst`: 2^beta, 2^-beta, int_min and int_max as
 # doubles, the non-dyadic finishing multiplier.  Per-residue blocks hold
@@ -74,14 +108,24 @@ _LAUNCH_LOCK = threading.Lock()
 class EncodedProgram:
     """One island's band program as flat tables (see `encode_program`)."""
     stages: np.ndarray          # int64 (n_stages, NF)
-    taps: np.ndarray            # int64 (n_taps, 4): parent, dy, dx, weight
+    taps: np.ndarray            # int64 (n_taps, TAPW)
     phases: np.ndarray          # int64 (n_res, 5): ry, rx, qmin, qmax, fbase
-    prog: np.ndarray            # int64 (n_ops, 4): opcode, a, b, c
+    prog: np.ndarray            # int64 (n_ops, TAPW)
     fconst: np.ndarray          # f64 constants
+    rmaps: np.ndarray           # int64 (n, 4): consumer, parent, dy, offset
+    cmaps: np.ndarray           # int64 (n, 4): consumer, parent, dx, offset
+    resmap: np.ndarray          # int64: phase row per lattice residue, or -1
     names: List[str]            # stage name per table row
-    ws_per_block: int           # workspace slots (8 bytes) one band needs
-    _dev: Dict[str, Tuple[torch.Tensor, ...]] = dataclasses.field(
+    col_tile: int               # base columns per tile; 0: one whole tile
+    ntiles: int                 # column tiles per band
+    layout: Dict[str, int]      # the launch's scalars (LAYOUT)
+    ws_per_block: int           # bytes of global tiles one block needs
+    _dev: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False)
+
+    @property
+    def smem_bytes(self) -> int:
+        return self.layout["smem_bytes"]
 
     def rows(self) -> List[Dict[str, int]]:
         return [dict(zip(FIELDS, r)) for r in self.stages.tolist()]
@@ -92,15 +136,23 @@ class EncodedProgram:
         return sorted(((s, r) for s, r in enumerate(self.rows())
                        if r[key] >= 0), key=lambda sr: sr[1][key])
 
-    def device_tables(self, device: torch.device) -> Tuple[torch.Tensor, ...]:
-        """The tables as tensors on `device`, copied once per device."""
+    def meta(self) -> np.ndarray:
+        """Every table in one int64 array (f64 constants as their bits),
+        at the `LAYOUT` offsets: what a block copies to shared memory."""
+        return np.concatenate([
+            a.reshape(-1) for a in (self.stages, self.taps, self.phases,
+                                    self.prog, self.rmaps, self.cmaps,
+                                    self.resmap,
+                                    self.fconst.view(np.int64))])
+
+    def device_meta(self, device: torch.device) -> torch.Tensor:
+        """`meta()` on `device`, copied once per device."""
         key = str(device)
         if key not in self._dev:
-            self._dev[key] = tuple(
-                torch.from_numpy(a).to(device)
-                for a in (self.stages, self.taps, self.phases, self.prog,
-                          self.fconst))
+            self._dev[key] = torch.from_numpy(self.meta()).to(device)
         return self._dev[key]
+
+
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +246,159 @@ def _int64(v: int, what: str) -> int:
     return v
 
 
-def encode_program(program: Sequence[Dict]) -> EncodedProgram:
+def _refs(d: Dict[str, int], taps: List[List[int]], prog: List[List[int]]
+          ) -> List[Tuple[int, int, int]]:
+    """(parent, dy, dx) of every integer tap and every OP_REF of a stage."""
+    if d["kind"] == KIND_INTLINEAR:
+        return [tuple(t[:3]) for t in
+                taps[d["tap_begin"]:d["tap_begin"] + d["tap_count"]]]
+    if d["kind"] == KIND_EXPR:
+        return [tuple(c[1:4]) for c in
+                prog[d["prog_begin"]:d["prog_begin"] + d["prog_len"]]
+                if c[0] == OP_REF]
+    return []
+
+
+def _column_lattice(rows: List[Dict[str, int]],
+                    refs: List[List[Tuple[int, int, int]]]
+                    ) -> Tuple[int, Optional[int]]:
+    """(W_base, lattice): the widest input's width and the lcm of the
+    stages' column-rate denominators, or None where some width is not
+    rate-exact (then only one whole-width tile is exact)."""
+    wb = max(d["W"] for d in rows if d["kind"] == KIND_INPUT)
+    for c, d in enumerate(rows):
+        for p, _, _ in refs[c]:
+            if d["W"] * d["sx"] != rows[p]["W"] * d["ux"]:
+                return wb, None
+    return wb, lcm(*(Fraction(d["W"], wb).denominator for d in rows))
+
+
+def _column_spans(rows: List[Dict[str, int]],
+                  refs: List[List[Tuple[int, int, int]]], wb: int,
+                  tw: int) -> Tuple[int, List[Tuple[int, int, int]]]:
+    """Column tiles of `tw` base columns: (ntiles, [(cstep, clo, CW)]).
+
+    The backward span pass of `lowering.schedule._schedule_core`, on
+    columns: tile j of stage s covers columns
+    ``[j * cstep + clo, j * cstep + clo + CW)``, clamped at the edges,
+    where cstep = tw * W_s / W_base is exact on the column lattice.
+    Each span is widened, where needed, so that every tile's span meets
+    the stage's columns: a tap at a clamped edge column then lands
+    inside its parent's tile, and the tile holds exactly the values of
+    the whole-width band."""
+    nt = -(-wb // tw)
+    cs = [d["W"] * tw // wb for d in rows]
+    lo: List[Optional[int]] = [0 if d["out_slot"] >= 0 else None
+                               for d in rows]
+    hi: List[Optional[int]] = [cs[s] if d["out_slot"] >= 0 else None
+                               for s, d in enumerate(rows)]
+    for c in reversed(range(len(rows))):
+        d = rows[c]
+        if lo[c] is None:
+            lo[c], hi[c] = 0, cs[c]
+        hi[c] = max(hi[c], 1)
+        lo[c] = min(lo[c], d["W"] - 1 - (nt - 1) * cs[c])
+        for p, _, dx in refs[c]:
+            a = (d["sx"] * lo[c] + dx) // d["ux"]
+            b = (d["sx"] * (hi[c] - 1) + dx) // d["ux"] + 1
+            lo[p] = a if lo[p] is None else min(lo[p], a)
+            hi[p] = b if hi[p] is None else max(hi[p], b)
+    return nt, [(cs[s], lo[s], hi[s] - lo[s]) for s in range(len(rows))]
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _align4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _item_passes(rows: List[Dict[str, int]],
+                 refs: List[List[Tuple[int, int, int]]], wb: int,
+                 tw: Optional[int]) -> int:
+    """Block-wide passes the kernel takes for one band at column tiles
+    of `tw` (None: one whole-width tile): per tile, each compute stage's
+    quads of 4 columns over THREADS threads, plus ITEM_PASSES for the
+    item's maps, copies and barriers.  The kernel's time goes as this
+    count: a pass is one walk of the stage's program."""
+    if tw is None:
+        nt, spans = 1, [(d["W"], 0, d["W"]) for d in rows]
+    else:
+        nt, spans = _column_spans(rows, refs, wb, tw)
+    per = sum(-(-d["L"] * (_align4(cw) // 4) // THREADS)
+              for d, (_, _, cw) in zip(rows, spans)
+              if d["kind"] != KIND_INPUT)
+    return nt * (per + ITEM_PASSES)
+
+
+def _box_pitch(cw: int, w: int, esize: int) -> int:
+    """Bytes of one input-band row in shared memory: the box of
+    ``min(CW, W)`` columns, copied as the 16-byte chunks that cover it
+    at any alignment."""
+    return _align16(min(cw, w) * esize + 15)
+
+
+def _layout(rows: List[Dict[str, int]], n_meta: int, n_rows: int,
+            n_cols: int, smem_limit: int) -> Tuple[Dict[str, int], int]:
+    """Place every stage tile and lay out one block's shared memory.
+
+    Fills each row's place, tile_off and pitch.  Shared memory holds the
+    tables, a base pointer per stage, the index maps, every read compute
+    tile in its container, and the input bands twice (the slot being
+    read and the slot being filled).  While that exceeds `smem_limit`,
+    the largest shared tile moves out: a compute tile to a per-block
+    global slot, an input to reads in place (``smem_limit=0`` moves
+    every tile out).  Returns the shared-memory
+    offsets and the bytes of global slots one block needs."""
+    consumed = {p for d in rows for p in d["_parents"]}
+    for s, d in enumerate(rows):
+        if d["kind"] == KIND_INPUT:
+            d["place"] = PLACE_SHARED
+            d["pitch"] = _box_pitch(d["CW"], d["W"], d["esize"])
+        else:
+            d["place"] = PLACE_SHARED if s in consumed else PLACE_NONE
+            d["pitch"] = d["CW"] * d["esize"]
+    head = {"s_sbase": _align16(8 * n_meta)}
+    head["s_rowmaps"] = head["s_sbase"] + _align16(8 * len(rows))
+    head["s_colmaps"] = head["s_rowmaps"] + _align16(4 * n_rows)
+    tiles_at = head["s_colmaps"] + _align16(4 * n_cols)
+
+    def cost(d):        # shared bytes a tile takes (inputs twice)
+        return _align16(d["L"] * d["pitch"]) * (
+            2 if d["kind"] == KIND_INPUT else 1)
+
+    while True:
+        shared = [d for d in rows if d["place"] == PLACE_SHARED]
+        total = tiles_at + sum(cost(d) for d in shared)
+        if total <= smem_limit or not shared:
+            break
+        max(shared, key=cost)["place"] = PLACE_GLOBAL
+    if tiles_at > SMEM_MAX:
+        raise LoweringError(f"the island's tables and index maps take "
+                            f"{tiles_at} bytes of shared memory, more "
+                            f"than a block has ({SMEM_MAX})")
+    at, ws = tiles_at, 0
+    for d in rows:
+        d["tile_off"] = -1
+        if d["kind"] == KIND_INPUT:
+            if d["place"] == PLACE_GLOBAL:
+                d["pitch"] = d["W"] * d["esize"]
+        elif d["place"] == PLACE_SHARED:
+            d["tile_off"], at = at, at + cost(d)
+        elif d["place"] == PLACE_GLOBAL:
+            d["tile_off"], ws = ws, ws + _align16(d["L"] * d["pitch"])
+    in_stride = 0
+    for d in rows:
+        if d["kind"] == KIND_INPUT and d["place"] == PLACE_SHARED:
+            d["tile_off"] = at + in_stride
+            in_stride += _align16(d["L"] * d["pitch"])
+    head.update(in_stride=in_stride, smem_bytes=at + 2 * in_stride)
+    return head, ws
+
+
+def encode_program(program: Sequence[Dict], col_tile: Optional[int] = None,
+                   smem_limit: int = SMEM_LIMIT) -> EncodedProgram:
     """Flatten one island's stage descriptors into the kernel's tables.
 
     `program` is `lowering.cuda_backend.island_program`'s list: inputs
@@ -206,31 +410,40 @@ def encode_program(program: Sequence[Dict]) -> EncodedProgram:
     program emitted by running `eval_expr` on symbolic values — so the
     kernel issues the oracle's floating ops in the oracle's order, with
     constants and parameters baked in — plus its snap rule.
+
+    It then cuts the band into column tiles of `col_tile` base columns
+    — by default the width on the column lattice, up to MAX_COL_TILE,
+    with the fewest block-wide passes (`_item_passes`) whose block fits
+    `smem_limit` bytes of shared memory; one whole-width tile where no
+    width is rate-exact — builds the index maps a block fills per work
+    item, and places each tile (`_layout`).
     """
     index = {d["name"]: k for k, d in enumerate(program)}
-    stages, taps, phases, prog, fconst = [], [], [], [], []
-    ws_off = 0
+    rows, taps, phases, prog, fconst = [], [], [], [], []
     for d in program:
         ls = d["ls"]
         row = dict.fromkeys(FIELDS, 0)
         row.update(step=d["step"], lo=d["lo"], L=d["L"], H=d["H"],
                    W=d["W"], code=CODE[d["dtype"]], in_slot=-1,
-                   out_slot=d.get("out_slot", -1), ws_off=-1,
+                   out_slot=d.get("out_slot", -1),
                    is_float=int(d["dtype"] == torch.float64),
+                   esize=d["dtype"].itemsize, rres=-1, cres=-1,
                    sy=1, sx=1, uy=1, ux=1, my=1, mx=1, dyadic=1, sm=1)
         row["fbase"] = len(fconst)
         fconst += _type_block(ls.t) + [float(ls.cscale)]
         if ls.t is not None and not ls.store_float:
             row["int_min"] = _int64(ls.t.int_min, "int_min")
             row["int_max"] = _int64(ls.t.int_max, "int_max")
+        if _I32_MAX < d["H"] * d["W"] * row["esize"]:
+            raise LoweringError(
+                f"stage {d['name']!r}: a {d['H']}x{d['W']} image "
+                f"overflows the kernel's int32 coordinates")
+        rows.append(row)
         if d["kind"] == "input":
             row.update(kind=KIND_INPUT, in_slot=d["in_slot"])
-            stages.append([row[f] for f in FIELDS])
             continue
         st = ls.stage
         (row["sy"], row["sx"]), (row["uy"], row["ux"]) = st.stride, st.upsample
-        row["ws_off"] = ws_off
-        ws_off += d["L"] * d["W"]
         if ls.phase is not None:
             my, mx = ls.phase.lattice
             row.update(my=my, mx=mx, ph_begin=len(phases),
@@ -244,49 +457,157 @@ def encode_program(program: Sequence[Dict]) -> EncodedProgram:
                     qmax = _int64(t_ph.int_max, "phase int_max")
                 phases.append([ry, rx, qmin, qmax, fb])
         if ls.kind == "intlinear":
+            # acc32: the lowering proved every partial sum (and a dyadic
+            # finish) fits int32 (`lowering.ir._plan_intlinear`), so the
+            # kernel may accumulate in int32, bit-equal to int64
             row.update(kind=KIND_INTLINEAR, tap_begin=len(taps),
                        tap_count=len(ls.int_taps), dyadic=int(ls.dyadic),
-                       sm=ls.sm, t_shift=ls.t_shift)
-            taps += [[index[tp.stage], tp.dy, tp.dx, tp.W]
+                       sm=ls.sm, t_shift=ls.t_shift,
+                       acc32=int(ls.carrier == "int32"))
+            taps += [[index[tp.stage], tp.dy, tp.dx, tp.W, 0, 0, 0, 0]
                      for tp in ls.int_taps]
+            continue
+        if ls.expr_dtype != "f64":
+            # narrow-mode f32 replay is a later slice of the port
+            raise LoweringError(
+                f"stage {d['name']!r}: the band kernel encodes f64 "
+                f"expression stages only, not {ls.expr_dtype!r}")
+        xp = _EmitXP(fconst)
+
+        def ref(stage, dy, dx):
+            return _Sym([(OP_REF, index[stage], dy, dx)], fconst)
+
+        code = _lift(B.eval_expr(st.expr, ref, d["params"], xp, xp.where),
+                     fconst).code
+        if _stack_depth(code) > MAX_STACK:
+            raise LoweringError(
+                f"stage {d['name']!r}: expression needs a stack deeper "
+                f"than {MAX_STACK}")
+        if ls.t is None:
+            snap = B.SNAP_RAW
+        elif ls.phase is not None and not ls.phase.int_ok:
+            snap = B.SNAP_MIXED
+        elif ls.store_float:
+            snap = B.SNAP_FLOAT
         else:
-            if ls.expr_dtype != "f64":
-                # narrow-mode f32 replay is a later slice of the port
-                raise LoweringError(
-                    f"stage {d['name']!r}: the band kernel encodes f64 "
-                    f"expression stages only, not {ls.expr_dtype!r}")
-            xp = _EmitXP(fconst)
+            snap = B.SNAP_INT
+        row.update(kind=KIND_EXPR, prog_begin=len(prog),
+                   prog_len=len(code), snap=snap)
+        prog += [list(c) + [0, 0, 0, 0] for c in code]
 
-            def ref(stage, dy, dx):
-                return _Sym([(OP_REF, index[stage], dy, dx)], fconst)
+    refs = [_refs(d, taps, prog) for d in rows]
+    for d, r in zip(rows, refs):
+        d["_parents"] = {p for p, _, _ in r}
 
-            code = _lift(B.eval_expr(st.expr, ref, d["params"], xp,
-                                     xp.where), fconst).code
-            if _stack_depth(code) > MAX_STACK:
-                raise LoweringError(
-                    f"stage {d['name']!r}: expression needs a stack deeper "
-                    f"than {MAX_STACK}")
-            if ls.t is None:
-                snap = B.SNAP_RAW
-            elif ls.phase is not None and not ls.phase.int_ok:
-                snap = B.SNAP_MIXED
-            elif ls.store_float:
-                snap = B.SNAP_FLOAT
-            else:
-                snap = B.SNAP_INT
-            row.update(kind=KIND_EXPR, prog_begin=len(prog),
-                       prog_len=len(code), snap=snap)
-            prog += [list(c) for c in code]
-        stages.append([row[f] for f in FIELDS])
+    # per-residue phase rows: the last entry naming a residue wins
+    resmap: List[int] = []
+    for d in rows:
+        if d["ph_count"]:
+            d["res_begin"] = len(resmap)
+            look = [-1] * (d["my"] * d["mx"])
+            for e in range(d["ph_begin"], d["ph_begin"] + d["ph_count"]):
+                ry, rx = phases[e][:2]
+                look[(ry % d["my"]) * d["mx"] + rx % d["mx"]] = e
+            resmap += look
 
-    def table(rows, width):
-        return np.asarray(rows, dtype=np.int64).reshape(-1, width)
+    def build(tw: Optional[int], limit: int):
+        """Column spans, index maps and layout for tiles of `tw` base
+        columns (None: one whole-width tile)."""
+        if tw is None:
+            nt, spans = 1, [(d["W"], 0, d["W"]) for d in rows]
+        else:
+            nt, spans = _column_spans(rows, refs, wb, tw)
+        for d, (cs, clo, cw) in zip(rows, spans):
+            d.update(cstep=cs, clo=clo, CW=cw)
+        rkeys: Dict[Tuple[int, int, int], int] = {}
+        ckeys: Dict[Tuple[int, int, int], int] = {}
+        rlen, clen = [0], [0]
 
-    return EncodedProgram(stages=table(stages, NF), taps=table(taps, 4),
-                          phases=table(phases, 5), prog=table(prog, 4),
-                          fconst=np.asarray(fconst, dtype=np.float64),
-                          names=[d["name"] for d in program],
-                          ws_per_block=ws_off)
+        def rmap(c, p, dy):
+            if (c, p, dy) not in rkeys:
+                rkeys[(c, p, dy)] = rlen[0]
+                rlen[0] += rows[c]["L"]
+            return rkeys[(c, p, dy)]
+
+        def cmap(c, p, dx):
+            if (c, p, dx) not in ckeys:
+                ckeys[(c, p, dx)] = clen[0]
+                clen[0] += _align4(rows[c]["CW"])
+            return ckeys[(c, p, dx)]
+
+        for c, d in enumerate(rows):
+            table, first = ((taps, d["tap_begin"]) if d["kind"] ==
+                            KIND_INTLINEAR else (prog, d["prog_begin"]))
+            n = d["tap_count"] if d["kind"] == KIND_INTLINEAR else \
+                d["prog_len"]
+            for t in table[first:first + n]:
+                if d["kind"] == KIND_INTLINEAR:
+                    p, dy, dx = t[:3]
+                    t[4:7] = rmap(c, p, dy), cmap(c, p, dx), rows[p]["code"]
+                elif t[0] == OP_REF:
+                    p, dy, dx = t[1:4]
+                    t[5:8] = rmap(c, p, dy), cmap(c, p, dx), rows[p]["code"]
+            if d["ph_count"]:
+                d["rres"], d["cres"] = rmap(c, -1, 0), cmap(c, -1, 0)
+        n_meta = (NF * len(rows) + TAPW * (len(taps) + len(prog))
+                  + 5 * len(phases) + 4 * (len(rkeys) + len(ckeys))
+                  + len(resmap) + len(fconst))
+        head, ws = _layout(rows, n_meta, rlen[0], clen[0], limit)
+        for d in rows:
+            if _I32_MAX < d["L"] * max(d["pitch"], d["CW"] * d["esize"]):
+                raise LoweringError("a tile overflows the kernel's int32 "
+                                    "coordinates")
+        return (tw or 0, nt, rkeys, ckeys, n_meta, head, ws)
+
+    wb, lattice = _column_lattice(rows, refs)
+    if col_tile is not None:
+        if lattice is None or col_tile % lattice:
+            raise LoweringError(
+                f"col_tile={col_tile} is not a multiple of the island's "
+                f"column lattice {lattice}")
+        built = build(col_tile if col_tile < wb else None, smem_limit)
+    else:
+        # every width on the lattice (and one whole-width tile), cheapest
+        # first, wider on ties, until one keeps every tile on chip; else
+        # the cheapest, with some tiles in global memory
+        tws: List[Optional[int]] = [None] + (
+            [] if lattice is None else
+            list(range(lattice, min(MAX_COL_TILE, wb - 1) + 1, lattice)))
+        cost = {tw: _item_passes(rows, refs, wb, tw) for tw in tws}
+        tws.sort(key=lambda t: (cost[t], -(t or wb)))
+        built = None
+        for tw in tws:
+            try:
+                built = build(tw, smem_limit)
+            except LoweringError:
+                continue
+            if all(d["place"] != PLACE_GLOBAL for d in rows):
+                break
+        else:
+            built = build(tws[0], smem_limit)
+    tw, nt, rkeys, ckeys, n_meta, head, ws = built
+    if ws > _I32_MAX:
+        raise LoweringError("the island's global tiles overflow the "
+                            "kernel's int32 coordinates")
+
+    def table(data, width):
+        return np.asarray(data, dtype=np.int64).reshape(-1, width)
+
+    maps = [table([[c, p, dy, off] for (c, p, dy), off in keys.items()], 4)
+            for keys in (rkeys, ckeys)]
+    parts = [table([[d[f] for f in FIELDS] for d in rows], NF),
+             table(taps, TAPW), table(phases, 5), table(prog, TAPW), *maps,
+             np.asarray(resmap, dtype=np.int64)]
+    offs = np.cumsum([0] + [a.size for a in parts]).tolist()
+    layout = dict(zip(("o_stages", "o_taps", "o_phases", "o_prog",
+                       "o_rmaps", "o_cmaps", "o_resmap", "o_fconst"), offs))
+    layout.update(head, n_meta=n_meta, n_stages=len(rows),
+                  n_rmaps=len(rkeys), n_cmaps=len(ckeys), ntiles=nt)
+    return EncodedProgram(
+        stages=parts[0], taps=parts[1], phases=parts[2], prog=parts[3],
+        fconst=np.asarray(fconst, dtype=np.float64), rmaps=maps[0],
+        cmaps=maps[1], resmap=parts[6], names=[d["name"] for d in program],
+        col_tile=tw, ntiles=nt, layout=layout, ws_per_block=ws)
 
 
 # ---------------------------------------------------------------------------
@@ -297,14 +618,28 @@ def _floordiv(a: torch.Tensor, b: int) -> torch.Tensor:
     return torch.div(a, b, rounding_mode="floor")
 
 
+def _cols(d: Dict[str, int], j: Optional[int]) -> Tuple[int, int]:
+    """(first column, width) of stage `d`'s tile j; the whole width for
+    ``j=None``."""
+    if j is None:
+        return 0, d["W"]
+    return j * d["cstep"] + d["clo"], d["CW"]
+
+
 def eval_band_reference(enc: EncodedProgram, inputs: Sequence[torch.Tensor],
-                        i: int) -> Dict[int, torch.Tensor]:
-    """Band step `i` of every image: stage row -> (B, L, W) tile.
+                        i: int, j: Optional[int] = None
+                        ) -> Dict[int, torch.Tensor]:
+    """Band step `i` of every image: stage row -> (B, L, columns) tile.
 
     `inputs` are (B, H, W) container tensors by input slot.  Integer
-    tiles come back in int64, float-stored ones in f64 — the kernel's
-    8-byte workspace slots.  This is the reference's `eval_band`,
-    walking the encoded tables instead of closures.
+    tiles come back in int64, float-stored ones in f64.  With ``j=None``
+    a tile spans the whole width: this is the reference's `eval_band`,
+    walking the encoded tables instead of closures.  With a column tile
+    `j`, tile column c of a stage holds column
+    ``clip(j * cstep + clo + c, 0, W - 1)`` and a tap reads its parent
+    through the band-relative clamp
+    ``clip(clip(floor((x * sx + dx) / ux), 0, pW - 1) - pc_start, 0,
+    pCW - 1)`` — the kernel's geometry, rows and columns alike.
     """
     rows = enc.rows()
     taps = enc.taps.tolist()
@@ -321,48 +656,52 @@ def eval_band_reference(enc: EncodedProgram, inputs: Sequence[torch.Tensor],
     for s, d in enumerate(rows):
         start = i * d["step"] + d["lo"]
         L, H, W = d["L"], d["H"], d["W"]
+        c0, CW = _cols(d, j)
         wide = torch.float64 if d["is_float"] else torch.int64
         rows_abs = torch.clamp(start + arange(L), 0, H - 1)
+        cols_abs = torch.clamp(c0 + arange(CW), 0, W - 1)
         if d["kind"] == KIND_INPUT:
             # contiguous band at the clamped start, widened before any
             # indexing (uint16/uint32 are storage-only), then the rows
             # reordered for the edge-replicate clamp
             b = min(max(start, 0), H - L)
             band = inputs[d["in_slot"]][:, b:b + L].to(wide)
-            tiles[s] = band.index_select(1, rows_abs - b)
+            tiles[s] = band.index_select(1, rows_abs - b).index_select(
+                2, cols_abs)
             continue
 
         def gather(p, dy, dx):
             pd = rows[p]
             p_start = i * pd["step"] + pd["lo"]
+            pc0, pcw = _cols(pd, j)
             src = torch.clamp(
                 _floordiv(rows_abs * d["sy"] + dy, d["uy"]) - p_start,
                 0, pd["L"] - 1)
-            cols = torch.clamp(_floordiv(arange(W) * d["sx"] + dx, d["ux"]),
-                               0, pd["W"] - 1)
+            cols = torch.clamp(
+                torch.clamp(_floordiv(cols_abs * d["sx"] + dx, d["ux"]),
+                            0, pd["W"] - 1) - pc0, 0, pcw - 1)
             return tiles[p].index_select(1, src).index_select(2, cols)
 
         fb = d["fbase"]
         res = phases[d["ph_begin"]:d["ph_begin"] + d["ph_count"]]
         if d["kind"] == KIND_INTLINEAR:
             acc = B.accumulate_intlinear(
-                [(w, gather(p, dy, dx))
-                 for p, dy, dx, w in
+                [(t[3], gather(*t[:3])) for t in
                  taps[d["tap_begin"]:d["tap_begin"] + d["tap_count"]]],
-                lambda: torch.zeros((nb, L, W), dtype=torch.int64,
+                lambda: torch.zeros((nb, L, CW), dtype=torch.int64,
                                     device=dev))
             qmin, qmax = d["int_min"], d["int_max"]
             if res:
                 qmin, qmax = B.residue_bounds(
-                    (d["my"], d["mx"]), [r[:4] for r in res], rows_abs, W,
-                    qmin, qmax)
+                    (d["my"], d["mx"]), [r[:4] for r in res], rows_abs,
+                    cols_abs, qmin, qmax)
             tiles[s] = B.finish_intlinear(acc, bool(d["dyadic"]), d["sm"],
                                           d["t_shift"], fc[fb + FC_CSCALE],
                                           qmin, qmax)
             continue
         stack: List[torch.Tensor] = []
-        for op, a, b_, c in prog[d["prog_begin"]:d["prog_begin"]
-                                  + d["prog_len"]]:
+        for op, a, b_, c, *_ in prog[d["prog_begin"]:d["prog_begin"]
+                                     + d["prog_len"]]:
             if op == OP_REF:
                 v = gather(a, b_, c)
                 if not rows[a]["is_float"]:
@@ -384,7 +723,7 @@ def eval_band_reference(enc: EncodedProgram, inputs: Sequence[torch.Tensor],
             else:
                 y, x = stack.pop(), stack.pop()
                 stack.append(_BINARY[op](x, y))
-        raw = stack.pop().to(torch.float64).expand(nb, L, W)
+        raw = stack.pop().to(torch.float64).expand(nb, L, CW)
         entries = [(ry, rx, lo, hi, fc[f]) for ry, rx, lo, hi, f in res]
         if d["snap"] == B.SNAP_MIXED:
             entries = [(ry, rx, fc[f + FC_MIN], fc[f + FC_MAX], fc[f])
@@ -394,7 +733,8 @@ def eval_band_reference(enc: EncodedProgram, inputs: Sequence[torch.Tensor],
                                else d["int_min"],
                                fc[fb + FC_MAX] if d["is_float"]
                                else d["int_max"],
-                               (d["my"], d["mx"]), entries, rows_abs)
+                               (d["my"], d["mx"]), entries, rows_abs,
+                               cols_abs)
     return tiles
 
 
@@ -408,16 +748,20 @@ _BINARY: Dict[int, Callable] = {
 
 
 def band_outputs_reference(enc: EncodedProgram,
-                           inputs: Sequence[torch.Tensor], i: int
+                           inputs: Sequence[torch.Tensor], i: int,
+                           j: Optional[int] = None
                            ) -> Dict[str, torch.Tensor]:
     """Band `i`'s output rows ``[-lo, -lo + step)`` per output stage,
-    cast into the stage's container: the reference's `band_output`."""
-    tiles = eval_band_reference(enc, inputs, i)
+    cast into the stage's container: the reference's `band_output`.
+    With a column tile `j`, its columns ``[-clo, -clo + cstep)``."""
+    tiles = eval_band_reference(enc, inputs, i, j)
     out = {}
     for s, d in enumerate(enc.rows()):
         if d["out_slot"] >= 0:
-            rows = tiles[s][:, -d["lo"]:-d["lo"] + d["step"]]
-            out[enc.names[s]] = rows.to(CONTAINERS[d["code"]])
+            t = tiles[s][:, -d["lo"]:-d["lo"] + d["step"]]
+            if j is not None:
+                t = t[:, :, -d["clo"]:-d["clo"] + d["cstep"]]
+            out[enc.names[s]] = t.to(CONTAINERS[d["code"]])
     return out
 
 
@@ -427,23 +771,32 @@ def _alloc_outputs(enc: EncodedProgram, nb: int, device) -> List[torch.Tensor]:
 
 
 def fused_pipeline_reference(enc: EncodedProgram, grid: int,
-                             batch: Optional[int] = None) -> Callable:
+                             batch: Optional[int] = None,
+                             col_tiles: bool = False) -> Callable:
     """Plain PyTorch version of the band kernel, band by band.
 
     Returns ``f(*inputs) -> tuple(outputs)`` with the `fused_pipeline`
     contract: inputs (H, W), or (B, H, W) with `batch`, in their
-    containers; outputs the island's output stages in theirs."""
+    containers; outputs the island's output stages in theirs.  With
+    `col_tiles` it walks the kernel's work items, (band, column tile),
+    and stitches their outputs, masking the ragged last band and tile;
+    else whole-width bands."""
 
     def run(*arrays):
         xs = [a if batch is not None else a.unsqueeze(0) for a in arrays]
         outs = _alloc_outputs(enc, xs[0].shape[0], xs[0].device)
         for i in range(grid):
-            band = band_outputs_reference(enc, xs, i)
-            for o, (s, d) in zip(outs, enc.slots("out_slot")):
-                r0 = i * d["step"]
-                k = min(d["step"], d["H"] - r0)     # ragged last band
-                if k > 0:
-                    o[:, r0:r0 + k] = band[enc.names[s]][:, :k]
+            for j in (range(enc.ntiles) if col_tiles else (None,)):
+                band = band_outputs_reference(enc, xs, i, j)
+                for o, (s, d) in zip(outs, enc.slots("out_slot")):
+                    r0, c0 = i * d["step"], 0 if j is None else \
+                        j * d["cstep"]
+                    k = min(d["step"], d["H"] - r0)     # ragged last band
+                    kc = d["W"] - c0 if j is None else \
+                        min(d["cstep"], d["W"] - c0)    # ragged last tile
+                    if k > 0 and kc > 0:
+                        o[:, r0:r0 + k, c0:c0 + kc] = \
+                            band[enc.names[s]][:, :k, :kc]
         return tuple(o if batch is not None else o[0] for o in outs)
 
     return run
@@ -459,8 +812,8 @@ def fused_pipeline(enc: EncodedProgram, grid: int,
 
     CPU tensors run `fused_pipeline_reference`.  CUDA tensors launch
     `csrc/fused_band.cu` on the current stream or raise; there is no
-    fallback.  The launch allocates the outputs and the per-block
-    workspace here, and does not synchronize."""
+    fallback.  The launch allocates the outputs (and the global tiles,
+    where the encoder placed any) here, and does not synchronize."""
 
     def run(*arrays):
         dev = arrays[0].device
@@ -471,6 +824,41 @@ def fused_pipeline(enc: EncodedProgram, grid: int,
         return _launch(enc, grid, batch, arrays)
 
     return run
+
+
+_OCCUPANCY: Dict[Tuple[int, int], Dict[str, int]] = {}
+
+
+def occupancy(enc: EncodedProgram, device) -> Dict[str, int]:
+    """The kernel's resources on `device` at `enc`'s shared memory:
+    blocks an SM runs at once, SMs, registers and local bytes a thread
+    (from the compiled kernel)."""
+    from repro_torch.kernels import _build
+    dev = torch.device(device)
+    key = (dev.index if dev.index is not None
+           else torch.cuda.current_device(), enc.smem_bytes)
+    if key not in _OCCUPANCY:
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(dev):
+            rc = _build.load("fused_band").fused_band_occupancy(
+                enc.smem_bytes, THREADS, out)
+        if rc != 0:
+            raise RuntimeError(f"fused_band occupancy query failed: CUDA "
+                               f"error {rc}")
+        _OCCUPANCY[key] = dict(zip(("blocks_per_sm", "sms", "registers",
+                                    "local_bytes"), out))
+        if out[0] < 1:
+            raise RuntimeError(f"fused_band: a block of {THREADS} threads "
+                               f"and {enc.smem_bytes} bytes of shared "
+                               f"memory does not fit an SM")
+    return _OCCUPANCY[key]
+
+
+def launch_grid(enc: EncodedProgram, grid: int, nb: int, device) -> int:
+    """Blocks of the persistent grid: every SM full, at most one block a
+    work item."""
+    occ = occupancy(enc, device)
+    return min(nb * grid * enc.ntiles, occ["sms"] * occ["blocks_per_sm"])
 
 
 def _launch(enc: EncodedProgram, grid: int, batch: Optional[int],
@@ -497,21 +885,19 @@ def _launch(enc: EncodedProgram, grid: int, batch: Optional[int],
                 f"contiguous {CONTAINERS[d['code']]} tensor of shape {want} "
                 f"on {dev}; got {a.dtype} {tuple(a.shape)} on {a.device}")
     outs = _alloc_outputs(enc, nb, dev)
-    blocks = min(nb * grid, 4 * torch.cuda.get_device_properties(
-        dev).multi_processor_count)
-    ws = torch.empty(blocks * enc.ws_per_block, dtype=torch.int64,
+    blocks = launch_grid(enc, grid, nb, dev)
+    ws = torch.empty(blocks * enc.ws_per_block, dtype=torch.uint8,
                      device=dev)
-    t_stages, t_taps, t_phases, t_prog, t_fc = enc.device_tables(dev)
+    layout = (ctypes.c_int * len(LAYOUT))(*[enc.layout[k] for k in LAYOUT])
     in_ptrs = (ctypes.c_void_p * MAX_IO)(*[a.data_ptr() for a in arrays])
     out_ptrs = (ctypes.c_void_p * MAX_IO)(*[o.data_ptr() for o in outs])
     lib = _build.load("fused_band")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fused_band_launch(
-            t_stages.data_ptr(), enc.stages.shape[0], t_taps.data_ptr(),
-            t_phases.data_ptr(), t_prog.data_ptr(), t_fc.data_ptr(),
-            in_ptrs, len(arrays), out_ptrs, len(outs), ws.data_ptr(),
-            enc.ws_per_block, nb, grid, blocks, THREADS, stream)
+            enc.device_meta(dev).data_ptr(), layout, in_ptrs, len(arrays),
+            out_ptrs, len(outs), ws.data_ptr(), enc.ws_per_block, nb, grid,
+            blocks, THREADS, stream)
     if rc != 0:
         raise RuntimeError(f"fused_band launch failed: CUDA error {rc}")
     with _LAUNCH_LOCK:

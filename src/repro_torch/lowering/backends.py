@@ -49,19 +49,21 @@ def rhe_shift(p: torch.Tensor, t: int) -> torch.Tensor:
 
 
 def residue_bounds(lattice: Tuple[int, int], entries: Sequence[ResidueBound],
-                   rows_abs: torch.Tensor, W: int, int_min: int,
-                   int_max: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                   rows_abs: torch.Tensor, cols_abs: torch.Tensor,
+                   int_min: int, int_max: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(qmin, qmax) int64 saturation grids for a phase-split stage tile.
 
-    `rows_abs` holds the tile's absolute rows.  Residues absent from
+    `rows_abs` and `cols_abs` hold the tile's absolute rows and
+    columns.  Residues absent from
     `entries` keep the union bounds; where two entries name the same
     residue the later one wins, as in the reference's `where` chain.
     """
     my, mx = lattice
     dev = rows_abs.device
     rr = (rows_abs % my).reshape(-1, 1)
-    cc = (torch.arange(W, dtype=torch.int64, device=dev) % mx).reshape(1, -1)
-    shape = (rows_abs.shape[0], W)
+    cc = (cols_abs % mx).reshape(1, -1)
+    shape = (rows_abs.shape[0], cols_abs.shape[0])
     qmin = torch.full(shape, int_min, dtype=torch.int64, device=dev)
     qmax = torch.full(shape, int_max, dtype=torch.int64, device=dev)
     for ry, rx, lo, hi in entries:
@@ -135,7 +137,8 @@ SNAP_INT, SNAP_FLOAT, SNAP_MIXED, SNAP_RAW = 0, 1, 2, 3
 def snap_expr(raw: torch.Tensor, mode: int, step: float, int_min, int_max,
               lattice: Optional[Tuple[int, int]] = None,
               entries: Sequence[Tuple[int, int, int, int, float]] = (),
-              rows_abs: Optional[torch.Tensor] = None) -> torch.Tensor:
+              rows_abs: Optional[torch.Tensor] = None,
+              cols_abs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Raw f64 stage tile -> stored tile (int64 grid or f64 values).
 
     * ``SNAP_RAW``   — untyped stage: the raw f64 value;
@@ -145,18 +148,17 @@ def snap_expr(raw: torch.Tensor, mode: int, step: float, int_min, int_max,
     * ``SNAP_INT``   — ``rint(raw * 2^beta)`` clipped to the union or
       per-residue bounds, stored as an integer.
 
-    `entries` are ``(ry, rx, qmin, qmax, step)`` per residue."""
+    `entries` are ``(ry, rx, qmin, qmax, step)`` per residue; `rows_abs`
+    and `cols_abs` the tile's absolute rows and columns."""
     if mode == SNAP_RAW:
         return raw
     if mode == SNAP_FLOAT:
         return snap_float(raw, step, int_min, int_max)
-    W = raw.shape[-1]
     if mode == SNAP_MIXED:
         out = snap_float(raw, step, int_min, int_max)
         my, mx = lattice
         rows = (rows_abs % my).reshape(-1, 1)
-        cols = (torch.arange(W, dtype=torch.int64, device=raw.device)
-                % mx).reshape(1, -1)
+        cols = (cols_abs % mx).reshape(1, -1)
         for ry, rx, lo, hi, st in entries:
             mask = (rows == ry % my) & (cols == rx % mx)
             out = torch.where(mask, snap_float(raw, st, lo, hi), out)
@@ -164,7 +166,7 @@ def snap_expr(raw: torch.Tensor, mode: int, step: float, int_min, int_max,
     q = torch.round(raw * step)
     if entries:
         qmin, qmax = residue_bounds(lattice, [e[:4] for e in entries],
-                                    rows_abs, W, int_min, int_max)
+                                    rows_abs, cols_abs, int_min, int_max)
         q = _clip(q, qmin, qmax)
     else:
         q = _clip(q, int_min, int_max)

@@ -20,6 +20,9 @@ from repro_torch.kernels.qmatmul import kernel as QM
 from repro_torch.kernels.qmatmul import ops as qmm_ops
 from repro_torch.kernels.stencil import kernel as K
 from repro_torch.kernels.stencil import ops as st_ops
+from repro_torch.lowering import backends as B
+from repro_torch.lowering import lower, partition_islands
+from repro_torch.lowering.cuda_backend import island_program
 from repro_torch.pipelines import ALL, usm
 from repro_torch.pipelines.types import load_types, types_from_data
 
@@ -54,7 +57,11 @@ def _check(pipe, img, types, params, dev):
 
 CASES = [("usm", (48, 48)), ("hcd", (48, 48)), ("dus", (47, 48)),
          ("dus_ext", (48, 48)), ("usm", (3, 47, 48)), ("hcd", (2, 40, 56)),
-         ("dus_ext", (3, 47, 48)), ("usm", (2, 1080, 1920))]
+         ("dus_ext", (3, 47, 48)), ("usm", (2, 1080, 1920)),
+         # two column tiles, the last one ragged
+         ("usm", (2, 64, 200)),
+         # tall single-tile islands whose inputs are read in place
+         ("dus_ext", (1, 601, 640))]
 
 
 @pytest.mark.parametrize("name,shape", CASES,
@@ -79,6 +86,39 @@ def test_saturating_phase_plan(cuda):
         for s, (lat, r) in ranges.items()}
     _check(ALL["dus_ext"](), _frames((2, 96, 96), 3), types_from_data(data),
            {}, cuda)
+
+
+# (name, shape, encoder options): several and ragged column tiles at a
+# forced width, and every tile in global memory
+ENCODED = [("usm", (2, 64, 200), {"col_tile": 32}),
+           ("hcd", (2, 40, 56), {"col_tile": 16}),
+           ("dus_ext", (2, 96, 96), {"col_tile": 32}),
+           ("hcd", (2, 64, 200), {"smem_limit": 0}),
+           ("dus_ext", (1, 97, 130), {"smem_limit": 0})]
+
+
+@pytest.mark.parametrize("name,shape,opts", ENCODED,
+                         ids=[f"{n}-{'x'.join(map(str, s))}-"
+                              f"{'-'.join(f'{k}{v}' for k, v in o.items())}"
+                              for n, s, o in ENCODED])
+def test_kernel_equals_plain_version_at_encoder_options(cuda, name, shape,
+                                                        opts):
+    lp = lower(ALL[name](), load_types(name), params=PARAMS.get(name, {}))
+    plan = partition_islands(lp, shape[-2:])
+    x = torch.from_numpy(_frames(shape, 7)).to(cuda)
+    buffers = {n: B.ingest_input(x, lp.stages[n]) for n in plan.inputs}
+    for isl in plan.islands:
+        enc = K.encode_program(island_program(lp, isl), **opts)
+        if "smem_limit" in opts:
+            assert all(d["place"] != K.PLACE_SHARED for d in enc.rows())
+        ins = [buffers[n] for n in isl.inputs]
+        got = _launched(K.LAUNCHES, "fused_band", lambda: K.fused_pipeline(
+            enc, isl.schedule.grid, shape[0])(*ins))
+        want = K.fused_pipeline_reference(enc, isl.schedule.grid,
+                                          shape[0])(*ins)
+        for g, w in zip(got, want):
+            _same(g, w)
+        buffers.update(zip(isl.outputs, got))
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@ walks; here it must equal the reference's `eval_band` + `band_output`
 (`repro/kernels/stencil/kernel.py`), band by band and image by image,
 dtype included, on every rate island of the benchmarks and on a
 saturating phase plan.  The reference runs eagerly under a scoped
-``jax.enable_x64(True)``.
+``jax.enable_x64(True)``.  The column-tiled walk of the plain version
+(the kernel's work items) must equal the whole-width walk.
 """
 import re
 from pathlib import Path
@@ -109,9 +110,12 @@ def test_plain_version_equals_eval_band_on_a_saturating_phase_plan():
 
 def test_tables_and_codes_match_the_cuda_source():
     src = CU.read_text()
-    block = src[src.index("// FIELDS-BEGIN"):src.index("// FIELDS-END")]
-    names = re.findall(r"F_([A-Z_]+)", block)
-    assert [n.lower() for n in names] == [f.lower() for f in K.FIELDS]
+    for begin, prefix, names in (("FIELDS", "F", K.FIELDS),
+                                 ("LAYOUT", "L", K.LAYOUT)):
+        block = src[src.index(f"// {begin}-BEGIN"):
+                    src.index(f"// {begin}-END")]
+        found = re.findall(r"\b%s_([A-Z0-9_]+)" % prefix, block)
+        assert [n.lower() for n in found] == [f.lower() for f in names]
 
     def enum(name):
         body = re.search(r"enum %s \{(.*?)\};" % name, src, re.S).group(1)
@@ -125,6 +129,9 @@ def test_tables_and_codes_match_the_cuda_source():
     assert enum("FConst") == py("FC_")
     assert enum("Snap") == py("SNAP_", pb)
     assert enum("Kind") == py("KIND_")
+    assert enum("Place") == py("PLACE_")
+    assert re.search(r"TAPW = (\d+);", src).group(1) == str(K.TAPW)
+    assert re.search(r"THREADS = (\d+);", src).group(1) == str(K.THREADS)
 
 
 def test_wrapper_runs_the_plain_version_on_cpu_tensors():
@@ -179,3 +186,105 @@ def test_encoder_rejects_what_the_kernel_does_not_run():
     isl = pl_.partition_islands(lp, (8, 8)).islands[0]
     with pytest.raises(pl_.LoweringError, match="f64 expression"):
         K.encode_program(island_program(lp, isl))
+    # every coordinate is int32 in the kernel: a 40000 x 40000 uint16
+    # image (3.2 GB of byte offsets) is refused
+    name, ref_build, port_build, params = BENCHES[0]
+    lp = pl_.lower(port_build(), types_from_data(to_data(
+        ref_types(ref_build()))), params=params)
+    isl = pl_.partition_islands(lp, (40000, 40000)).islands[0]
+    with pytest.raises(pl_.LoweringError, match="int32"):
+        K.encode_program(island_program(lp, isl))
+    # a column tile off the island's column lattice (dus_ext: 2)
+    name, ref_build, port_build, params = BENCHES[3]
+    lp = pl_.lower(port_build(), types_from_data(to_data(
+        ref_types(ref_build()))), params=params)
+    isl = pl_.partition_islands(lp, (48, 48)).islands[0]
+    with pytest.raises(pl_.LoweringError, match="lattice"):
+        K.encode_program(island_program(lp, isl), col_tile=7)
+
+
+# ---------------------------------------------------------------------------
+# the column-tiled walk: the kernel's work items
+# ---------------------------------------------------------------------------
+
+def _port_lowered(bench, plan=None):
+    name, ref_build, port_build, params = bench
+    if plan is not None:
+        return pl_.lower(port_build(), plan_design(plan))
+    return pl_.lower(port_build(), types_from_data(to_data(
+        ref_types(ref_build()))), params=params)
+
+
+def _tiled_equals_whole(plp, image, col_tiles):
+    """Island by island: the column-tiled plain walk at every width in
+    `col_tiles` == the whole-width walk, dtype included.  Returns the
+    column-tile counts seen."""
+    plan = pl_.partition_islands(plp, image.shape[-2:])
+    x = torch.from_numpy(image)
+    buffers = {n: pb.ingest_input(x, plp.stages[n]) for n in plan.inputs}
+    nb, seen = image.shape[0], set()
+    for isl in plan.islands:
+        program = island_program(plp, isl)
+        ins = [buffers[n] for n in isl.inputs]
+        want = K.fused_pipeline_reference(
+            K.encode_program(program), isl.schedule.grid, batch=nb)(*ins)
+        for tw in col_tiles:
+            enc = K.encode_program(program, col_tile=tw)
+            seen.add(enc.ntiles)
+            got = K.fused_pipeline_reference(enc, isl.schedule.grid,
+                                             batch=nb, col_tiles=True)(*ins)
+            for n, g, w in zip(isl.outputs, got, want):
+                assert g.dtype == w.dtype, n
+                assert torch.equal(g, w), (f"island {isl.idx} stage {n} "
+                                           f"col_tile {tw}")
+        buffers.update(zip(isl.outputs, want))
+    return seen
+
+
+TILED = [(b, (2, 48, 48), (8, 16, 32, 64)) for b in BENCHES] + \
+    [(BENCHES[2], (1, 47, 48), (8, 16, 64)),
+     (BENCHES[3], (1, 47, 48), (8, 16, 64)),
+     (BENCHES[0], (2, 40, 56), (16, 24, 64)),
+     (BENCHES[1], (2, 40, 56), (16, 64))]
+
+
+@pytest.mark.parametrize("bench,shape,col_tiles", TILED,
+                         ids=[f"{b[0]}-{'x'.join(map(str, s))}"
+                              for b, s, _ in TILED])
+def test_column_tiled_walk_equals_whole_width(bench, shape, col_tiles):
+    seen = _tiled_equals_whole(_port_lowered(bench), frames(shape, 17),
+                               col_tiles)
+    assert 1 in seen and max(seen) > 2      # one tile, and several
+
+
+def test_column_tiled_walk_on_a_saturating_phase_plan():
+    bench = BENCHES[3]
+    plp = _port_lowered(bench, phase_plan(bench[1]()))
+    assert plp.stages["resS"].phase is not None
+    _tiled_equals_whole(plp, frames((2, 48, 48), 3), (8, 16, 64))
+
+
+def test_encoder_places_every_1080p_tile_on_chip():
+    """At 1080x1920 every island of usm, hcd and dus_ext gets column
+    tiles whose block fits two to an SM with no tile in global memory;
+    ``smem_limit=0`` moves every tile out (compute tiles to per-block
+    global slots, inputs to reads in place); outputs nothing reads take
+    no tile."""
+    for bench in (BENCHES[0], BENCHES[1], BENCHES[3]):
+        plp = _port_lowered(bench)
+        for isl in pl_.partition_islands(plp, (1080, 1920)).islands:
+            program = island_program(plp, isl)
+            enc = K.encode_program(program)
+            rows = enc.rows()
+            assert enc.col_tile > 0 and enc.ntiles > 1
+            assert enc.ws_per_block == 0
+            assert enc.smem_bytes <= K.SMEM_LIMIT
+            read = {t[0] for t in enc.taps.tolist()} | {
+                c[1] for c in enc.prog.tolist() if c[0] == K.OP_REF}
+            for s, d in enumerate(rows):
+                assert d["place"] == (K.PLACE_SHARED if s in read
+                                      or d["kind"] == K.KIND_INPUT
+                                      else K.PLACE_NONE), enc.names[s]
+            out = K.encode_program(program, smem_limit=0)
+            assert out.ws_per_block > 0
+            assert all(d["place"] != K.PLACE_SHARED for d in out.rows())

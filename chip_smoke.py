@@ -19,12 +19,14 @@ Phases (any failure raises, and the exit code is not 0):
    and at column tile 128, beside their bounds and (usm) the plain
    version;
 2b. the kernel library: hold each of its five kernels against its plain
-   version with `torch.equal` and time both (and `torch._int_mm` beside
-   `qmatmul_i32`) at the sizes users run: one 1080x1920 frame through a
-   Sobel and a 5x5 blur stencil, qwen3-4b's MLP up-projection over 4096
-   tokens, and the block quantization of one of its weights; then drive
-   the library's front ends once with their launch counts set to 0 just
-   before, and check what comes out;
+   version with `torch.equal` and time both at the sizes users run: one
+   1080x1920 frame through a Sobel and a 5x5 blur stencil, qwen3-4b's
+   MLP up- and down-projection over 4096 tokens, and the block
+   quantization of one of its weights; beside `qmatmul_i32`, time
+   `torch._int_mm` on b row-major and column-major and the kernel's
+   pack pre-pass alone, and print the GEMM's tile, stages, shared bytes
+   and registers; then drive the library's front ends once with their
+   launch counts set to 0 just before, and check what comes out;
 3. serve 16 USM 1080x1920 frames through the port's `PipelineServer` at
    batch 4 on the kernel, with launch counts set to 0 just before, and
    check every result against the plain executor on the card; serve
@@ -56,6 +58,8 @@ FRAME = (1080, 1920)
 # tokens x d_model x d_ff: qwen3-4b's MLP up-projection over 4096 tokens
 # (src/repro/configs/qwen3_4b.py:11-12)
 QWEN_UP = (4096, 2560, 9728)
+# tokens x d_ff x d_model: its down-projection (K-long, fewer tiles)
+QWEN_DOWN = (4096, 9728, 2560)
 QDQ_BLOCK = 256
 SOBEL = [[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]]
 BLUR5 = [[a * b for b in (1, 4, 6, 4, 1)] for a in (1, 4, 6, 4, 1)]
@@ -140,6 +144,7 @@ def kernel_library(dev, card):
     import torch
 
     from repro_torch.core.fixedpoint import FixedPointType
+    from repro_torch.kernels import _build
     from repro_torch.kernels.qdq import kernel as QD
     from repro_torch.kernels.qdq import ops as DO
     from repro_torch.kernels.qmatmul import kernel as QM
@@ -185,42 +190,112 @@ def kernel_library(dev, card):
                 args[0].numel() * 4 + pixels * 4,
                 [(2 * len(args[1]) * pixels, PEAK_OPS_PER_S)])
 
-    # qmatmul_i32: int8 codes of qwen3-4b's up-projection; torch._int_mm
-    # is its yardstick only, timed here and called nowhere in the port
-    M, Kd, N = QWEN_UP
-    a_q = torch.randint(-128, 128, (M, Kd), dtype=torch.int8, device=dev,
-                        generator=gen)
-    b_q = torch.randint(-128, 128, (Kd, N), dtype=torch.int8, device=dev,
-                        generator=gen)
-    acc_want = QM.qmatmul_i32_reference(a_q, b_q)
-    int_mm = lambda: torch._int_mm(a_q, b_q)  # noqa: E731
-    try:
-        print(f"torch._int_mm == plain version: "
-              f"{torch.equal(int_mm(), acc_want)}", flush=True)
-    except RuntimeError as e:       # the yardstick only; no port path
-        print(f"torch._int_mm refused these operands: {e}", flush=True)
-        int_mm = None
-    mm_label = f"{M}x{Kd}x{N}"
-    measure("qmatmul_i32", mm_label, lambda: (QM.qmatmul_i32(a_q, b_q),),
-            lambda: (QM.qmatmul_i32_reference(a_q, b_q),),
-            M * Kd + Kd * N + 4 * M * N,
-            [(2 * M * N * Kd, INT8_TC_OPS_PER_S)], reps=(20, 3),
-            library=int_mm)
-
-    # qmatmul_dequant: the same product through matmul_quantized's
-    # quantizers, f32 epilogue (2 multiplies an output) at the f32 rate
-    a = torch.randn((M, Kd), device=dev, generator=gen)
-    b = torch.randn((Kd, N), device=dev, generator=gen)
-    (qa, sa), (qb, sb) = QO.quantize_rows(a), QO.quantize_cols(b)
-    deq = (qa, qb, sa, sb)
-    measure("qmatmul_dequant", mm_label,
-            lambda: (QM.qmatmul_dequant(*deq),),
-            lambda: (QM.qmatmul_dequant_reference(*deq),),
-            M * Kd + Kd * N + 4 * (M + N) + 4 * M * N,
-            [(2 * M * N * Kd, INT8_TC_OPS_PER_S),
-             (2 * M * N, PEAK_OPS_PER_S)], reps=(20, 3))
+    # qmatmul: int8 codes of qwen3-4b's up- and down-projection over 4096
+    # tokens; torch._int_mm is the yardstick only, timed here and called
+    # nowhere in the port: on b as it is (row-major) and on a
+    # column-major copy made outside the timed window (cuBLASLt's int8
+    # layout)
+    cfg = QM.gemm_config()
+    log = _build.library_path("qmatmul").with_suffix(".log")
+    ptxas, entry = [], ""
+    for ln in log.read_text().splitlines() if log.exists() else []:
+        if "Compiling entry function" in ln:
+            entry = ln
+        elif "qmm_kernel" in entry and ("registers" in ln or "spill" in ln):
+            ptxas.append(ln.replace("ptxas info    :", "").strip())
+    print(f"qmatmul GEMM ({card}): {cfg}; ptxas, both GEMM kernels: "
+          f"{ptxas}", flush=True)
+    shapes = {}
+    for M, Kd, N in (QWEN_UP, QWEN_DOWN):
+        mm_label = f"{M}x{Kd}x{N}"
+        a_q = torch.randint(-128, 128, (M, Kd), dtype=torch.int8,
+                            device=dev, generator=gen)
+        b_q = torch.randint(-128, 128, (Kd, N), dtype=torch.int8,
+                            device=dev, generator=gen)
+        # qmatmul_dequant: the product of f32 operands through
+        # matmul_quantized's quantizers
+        a = torch.randn((M, Kd), device=dev, generator=gen)
+        b = torch.randn((Kd, N), device=dev, generator=gen)
+        (qa, sa), (qb, sb) = QO.quantize_rows(a), QO.quantize_cols(b)
+        deq = (qa, qb, sa, sb)
+        b_cm = b_q.t().contiguous().t()
+        acc_want = QM.qmatmul_i32_reference(a_q, b_q)
+        deq_want = QM.qmatmul_dequant_reference(*deq)
+        err = {"qmatmul_i32": same(f"qmatmul_i32 {mm_label}",
+                                   (QM.qmatmul_i32(a_q, b_q),), (acc_want,)),
+               "qmatmul_dequant": same(f"qmatmul_dequant {mm_label}",
+                                       (QM.qmatmul_dequant(*deq),),
+                                       (deq_want,))}
+        # the split: the pack pre-pass alone
+        same(f"pack_b {mm_label}", (QM.pack_b(b_q),),
+             (QM.pack_b_reference(b_q),))
+        timed = {
+            "qmatmul_i32": lambda: QM.qmatmul_i32(a_q, b_q),
+            "qmatmul_dequant": lambda: QM.qmatmul_dequant(*deq),
+            "pack": lambda: QM.pack_b(b_q)}
+        # torch._int_mm is the yardstick only, timed here and called
+        # nowhere in the port: on b as it is (row-major) and on a
+        # column-major copy made outside the timed window (cuBLASLt's
+        # int8 layout)
+        for layout, bb in (("row-major", b_q), ("column-major", b_cm)):
+            fn = lambda bb=bb: torch._int_mm(a_q, bb)  # noqa: E731
+            try:
+                equal = torch.equal(fn(), acc_want)
+            except RuntimeError as e:   # the yardstick only; no port path
+                print(f"torch._int_mm refused b {layout} {mm_label}: {e}",
+                      flush=True)
+                continue
+            print(f"torch._int_mm b {layout} {mm_label} == plain version: "
+                  f"{equal}", flush=True)
+            timed[f"int_mm {layout}"] = fn
+        # the kernels and yardsticks in turns (two rounds of 10 launches
+        # each, the L2 flushed before every launch), then the plain
+        # versions, whose f64 products heat the card
+        ms = {k: 0.0 for k in timed}
+        for _ in range(2):
+            for k, fn in timed.items():
+                ms[k] += cold_ms(fn, 10, flush) / 2
+        plain = {"qmatmul_i32": cold_ms(
+                     lambda: QM.qmatmul_i32_reference(a_q, b_q), 3, flush),
+                 "qmatmul_dequant": cold_ms(
+                     lambda: QM.qmatmul_dequant_reference(*deq), 3, flush)}
+        works = {"qmatmul_i32": (M * Kd + Kd * N + 4 * M * N,
+                                 [(2 * M * N * Kd, INT8_TC_OPS_PER_S)]),
+                 # the f32 epilogue: 2 multiplies an output, f32 rate
+                 "qmatmul_dequant": (M * Kd + Kd * N + 4 * (M + N)
+                                     + 4 * M * N,
+                                     [(2 * M * N * Kd, INT8_TC_OPS_PER_S),
+                                      (2 * M * N, PEAK_OPS_PER_S)])}
+        for name, (moved, ops) in works.items():
+            bound_ms, bound_by = least_ms(moved, ops)
+            lib_ms = ms.get("int_mm row-major") if name == "qmatmul_i32" \
+                else None
+            print(f"{name} {mm_label} ({card}): kernel {ms[name]:.4f} ms, "
+                  f"plain {plain[name]:.4f} ms, library {lib_ms} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}: {moved} B, "
+                  f"{sum(n for n, _ in ops)} ops), max_abs_err {err[name]}",
+                  flush=True)
+            rows.setdefault(name, {
+                "max_abs_err": err[name], "ms": ms[name],
+                "plain_ms": plain[name], "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib_ms})
+        print(f"qmatmul {mm_label} ({card}): " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in ms.items()), flush=True)
+        shapes[mm_label] = {k: v for k, v in ms.items()
+                            if k not in works} | {
+            f"{k}_ms": v for k, v in ms.items() if k in works}
+        if (M, Kd, N) == QWEN_UP:
+            up = (a_q, b_q, acc_want, a, b, deq, mm_label)
+        del a_q, b_q, b_cm, acc_want, deq_want, a, b, qa, qb, sa, sb, deq
+    a_q, b_q, acc_want, a, b, deq, mm_label = up
+    for name in ("qmatmul_i32", "qmatmul_dequant"):
+        rows[name]["shapes"] = shapes
+        rows[name]["gemm"] = cfg
+    rows["qmatmul_i32"]["library_colmajor_ms"] = \
+        shapes[mm_label].get("int_mm column-major")
 
     # block_quantize / block_dequantize: one up-projection weight
+    M, Kd, N = QWEN_UP
     w = torch.randn((Kd, N), device=dev, generator=gen) * 0.02
     x = w.reshape(-1, QDQ_BLOCK)
     nb, n = x.shape[0], x.numel()

@@ -4,8 +4,10 @@ call them.
 Each source under `<kernel>/csrc/*.cu` has one or more plain C entry
 points.  It is compiled once into a shared library under
 `build/kernels/` at the root of the checkout, named by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one
-loads from the cache.
+source, of every other file under its `csrc/` directory except the
+other sources (the headers it may include), and of the flags, so an
+edited source or header rebuilds and an unchanged one loads from the
+cache.
 `build` starts one `nvcc` per missing library, all at once.
 """
 from __future__ import annotations
@@ -45,10 +47,13 @@ SIGNATURES = {
     # qmax, stream
     "stencil": {"stencil_launch": [
         _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P]},
-    # a, b, [sa, sb,] out, M, N, K, stream
-    "qmatmul": {"qmatmul_i32_launch": [_P, _P, _P, _I, _I, _I, _P],
-                "qmatmul_dequant_launch": [_P, _P, _P, _P, _P, _I, _I, _I,
-                                           _P]},
+    # a, b, a_pad, bt, [sa, sb,] out, M, N, K, stream / b, bt, K, N,
+    # stream / info[8]
+    "qmatmul": {"qmatmul_i32_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+                "qmatmul_dequant_launch": [_P, _P, _P, _P, _P, _P, _P, _I,
+                                           _I, _I, _P],
+                "qmatmul_pack_b_launch": [_P, _P, _I, _I, _P],
+                "qmatmul_config": [_c.POINTER(_I)]},
     # x, codes, scales, NB, BS, stream / codes, scales, out, NB, BS, stream
     "qdq": {"block_quantize_launch": [_P, _P, _P, _I64, _I, _P],
             "block_dequantize_launch": [_P, _P, _P, _I64, _I, _P]},
@@ -67,9 +72,17 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    key = hashlib.sha256(SOURCES[name].read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+    """The library of kernel `name`, named by a hash of the flags and of
+    every file under its source's directory, names included, but the
+    other sources there: editing one source rebuilds only its library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    src_dir = SOURCES[name].parent
+    others = {p for n, p in SOURCES.items() if n != name}
+    for f in sorted(p for p in src_dir.rglob("*")
+                    if p.is_file() and p not in others):
+        h.update(str(f.relative_to(src_dir)).encode() + b"\0")
+        h.update(f.read_bytes() + b"\0")
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
@@ -119,19 +132,22 @@ def load(name: str) -> ctypes.CDLL:
 def launch(name: str, fn_name: str, tensors: Sequence[torch.Tensor],
            *scalars) -> None:
     """Call entry point `fn_name` of library `name` with the data
-    pointers of `tensors` (contiguous, all on one CUDA device), then
-    `scalars`, then the device's current stream.  Raises on any other
-    operand and when the call returns a CUDA error."""
+    pointers of `tensors` (contiguous, all on one CUDA device; None
+    passes a null pointer), then `scalars`, then the device's current
+    stream.  Raises on any other operand and when the call returns an
+    error."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise RuntimeError(f"{fn_name}: unsupported device {dev}")
     for t in tensors:
-        if t.device != dev or not t.is_contiguous():
+        if t is not None and (t.device != dev or not t.is_contiguous()):
             raise ValueError(f"{fn_name}: every operand must be a "
                              f"contiguous tensor on {dev}")
     fn = getattr(load(name), fn_name)
     with torch.cuda.device(dev):
-        rc = fn(*[t.data_ptr() for t in tensors], *scalars,
-                torch.cuda.current_stream(dev).cuda_stream)
+        rc = fn(*[None if t is None else t.data_ptr() for t in tensors],
+                *scalars, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{fn_name} failed: CUDA error {rc}")
+        raise RuntimeError(f"{fn_name} failed: " + (
+            f"CUDA error {rc}" if rc > 0 else f"error {rc} (see the "
+            f"entry point's comment in {SOURCES[name].name})"))

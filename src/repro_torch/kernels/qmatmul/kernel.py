@@ -2,10 +2,15 @@
 
 Replaces the TPU kernels `repro/kernels/qmatmul/kernel.py:qmatmul_i32`
 and `qmatmul_dequant` with one CUDA source, `csrc/qmatmul.cu` (s8
-tensor-core `mma.sync`, int32 accumulators, ragged edges masked, so no
-block padding).  The plain versions sit beside the wrappers: the
-wrappers run them for CPU tensors, and on CUDA tensors launch the
-kernel or raise, counting launches in `LAUNCHES`.
+`wgmma` from a TMA/mbarrier ring of shared-memory stages, warp
+specialised, on a persistent grid; ragged edges zero-filled by TMA and
+masked on store, so no block padding).  The s8 `wgmma` reads b K-major,
+so a pre-pass packs b (K, N) into bT (N, K16), K rounded up to 16 and
+zero-filled, and copies a to an (M, K16) scratch where TMA cannot read
+it in place; the wrappers allocate that scratch.  The plain versions
+sit beside the wrappers: the wrappers run them for CPU tensors, and on
+CUDA tensors launch the kernel or raise, counting launches in
+`LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -57,12 +62,64 @@ def _check(name: str, a_q: torch.Tensor, b_q: torch.Tensor,
                          + f"; got {got}")
 
 
-def _launch(name: str, out_dtype: torch.dtype, *operands: torch.Tensor
-            ) -> torch.Tensor:
+def _k16(K: int) -> int:
+    """K rounded up to 16: the packed operands' row length in bytes."""
+    return -(-K // 16) * 16
+
+
+def pack_b_reference(b_q: torch.Tensor) -> torch.Tensor:
+    """Plain version of the pack pre-pass: (K, N) -> bT (N, K16), the
+    transpose zero-padded along K."""
+    K, N = b_q.shape
+    bt = torch.zeros((N, _k16(K)), dtype=torch.int8, device=b_q.device)
+    bt[:, :K] = b_q.t()
+    return bt
+
+
+def pack_b(b_q: torch.Tensor) -> torch.Tensor:
+    """The pack pre-pass alone, as the kernels run it before the product:
+    bT (N, K16) from int8 (K, N).  CPU tensors run the plain version."""
+    if b_q.dtype != torch.int8 or b_q.dim() != 2:
+        raise ValueError(f"pack_b: want int8 (K, N); got {b_q.dtype} "
+                         f"{tuple(b_q.shape)}")
+    if b_q.device.type == "cpu":
+        return pack_b_reference(b_q)
     from repro_torch.kernels import _build
-    (M, K), N = operands[0].shape, operands[1].shape[1]
-    out = torch.empty((M, N), dtype=out_dtype, device=operands[0].device)
-    _build.launch("qmatmul", f"{name}_launch", (*operands, out), M, N, K)
+    K, N = b_q.shape
+    bt = torch.empty((N, _k16(K)), dtype=torch.int8, device=b_q.device)
+    _build.launch("qmatmul", "qmatmul_pack_b_launch", (b_q, bt), K, N)
+    return bt
+
+
+def gemm_config() -> Dict[str, int]:
+    """The compiled GEMM's configuration on the current card: tile
+    (BM, BN, BK bytes of K), ring stages, threads, dynamic shared bytes a
+    block, registers and local bytes a thread."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    info = (ctypes.c_int * 8)()
+    rc = _build.load("qmatmul").qmatmul_config(info)
+    if rc != 0:
+        raise RuntimeError(f"qmatmul_config failed: CUDA error {rc}")
+    keys = ("BM", "BN", "BK", "stages", "threads", "smem_bytes",
+            "registers", "local_bytes")
+    return dict(zip(keys, info))
+
+
+def _launch(name: str, out_dtype: torch.dtype, a_q: torch.Tensor,
+            b_q: torch.Tensor, *scales: torch.Tensor) -> torch.Tensor:
+    from repro_torch.kernels import _build
+    (M, K), N = a_q.shape, b_q.shape[1]
+    dev = a_q.device
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    # the GEMM's scratch: bT always, a padded copy where TMA cannot read
+    # a in place (16-byte base and row stride)
+    bt = torch.empty((N, _k16(K)), dtype=torch.int8, device=dev)
+    a_pad = (torch.empty((M, _k16(K)), dtype=torch.int8, device=dev)
+             if K % 16 or a_q.data_ptr() % 16 else None)
+    _build.launch("qmatmul", f"{name}_launch",
+                  (a_q, b_q, a_pad, bt, *scales, out), M, N, K)
     with _LAUNCH_LOCK:
         LAUNCHES[name] += 1
     return out

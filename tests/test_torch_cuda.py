@@ -164,24 +164,82 @@ def test_stencil_kernel_equals_plain_version(cuda, name, H, W, hy, hx, shift):
     _same(got, K.fixedpoint_stencil_reference(xq, *args))
 
 
-QMM = [(256, 512, 384), (37, 70, 53), (64, 40, 64), (1, 1, 1), (130, 48, 20)]
+# (M, K, N): ragged M, N and K across several 128 x 256 tiles; a K that
+# crosses the 128-byte swizzle atom and turns the 4-stage ring over;
+# K % 16 != 0 (a copied to a padded scratch) at a size that runs the
+# GEMM; K = 0 (the epilogue over zero accumulators); small cases; and
+# more tiles than the card has SMs (153 on 132), ragged on every axis,
+# with 9 tile rows (a partial group of 8), so that blocks carry the
+# ring's phase, the column scales and the staging buffers from tile to
+# tile.  N % 4 != 0 (53, 1, 4098) stores the output straight from the
+# registers; the others store it with TMA.
+QMM = [(256, 512, 384), (37, 70, 53), (64, 40, 64), (1, 1, 1), (130, 48, 20),
+       (300, 1000, 520), (257, 4160, 264), (200, 70, 300), (4, 0, 5),
+       (1100, 520, 4098), (1100, 300, 4100)]
+
+
+def _qmm_operands(dev, M, K, N, seed, offset=0):
+    """Random int8 a (M, K), b (K, N) and f32 scales; with `offset`, a
+    and b are contiguous views that many bytes into larger buffers."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a, b = (torch.randint(-128, 128, (offset + r * c,), dtype=torch.int8,
+                          device=dev, generator=g)[offset:].view(r, c)
+            for r, c in ((M, K), (K, N)))
+    sa = torch.rand((M, 1), device=dev, generator=g)
+    sb = torch.rand((1, N), device=dev, generator=g)
+    return a, b, sa, sb
+
+
+def _qmm_check(a, b, sa, sb):
+    _same(_launched(QM.LAUNCHES, "qmatmul_i32",
+                    lambda: QM.qmatmul_i32(a, b)),
+          QM.qmatmul_i32_reference(a, b))
+    _same(_launched(QM.LAUNCHES, "qmatmul_dequant",
+                    lambda: QM.qmatmul_dequant(a, b, sa, sb)),
+          QM.qmatmul_dequant_reference(a, b, sa, sb))
 
 
 @pytest.mark.parametrize("M,K,N", QMM, ids=["x".join(map(str, s))
                                              for s in QMM])
 def test_qmatmul_kernels_equal_plain_versions(cuda, M, K, N):
-    g = torch.Generator(device=cuda).manual_seed(M + K + N)
-    a = torch.randint(-128, 128, (M, K), dtype=torch.int8, device=cuda,
-                      generator=g)
-    b = torch.randint(-128, 128, (K, N), dtype=torch.int8, device=cuda,
-                      generator=g)
-    sa = torch.rand((M, 1), device=cuda, generator=g)
-    sb = torch.rand((1, N), device=cuda, generator=g)
-    _same(_launched(QM.LAUNCHES, "qmatmul_i32", lambda: QM.qmatmul_i32(a, b)),
-          QM.qmatmul_i32_reference(a, b))
-    _same(_launched(QM.LAUNCHES, "qmatmul_dequant",
-                    lambda: QM.qmatmul_dequant(a, b, sa, sb)),
-          QM.qmatmul_dequant_reference(a, b, sa, sb))
+    _qmm_check(*_qmm_operands(cuda, M, K, N, M + K + N))
+
+
+def test_qmatmul_kernels_on_operands_at_a_1_byte_offset(cuda):
+    """a and b 1 byte into their buffers: TMA cannot read a in place, so
+    the pre-pass copies it, and b packs byte by byte."""
+    a, b, sa, sb = _qmm_operands(cuda, 200, 320, 130, 3, offset=1)
+    assert a.data_ptr() % 16 and a.is_contiguous() and b.is_contiguous()
+    _qmm_check(a, b, sa, sb)
+
+
+def test_qmatmul_kernels_at_the_largest_accumulators(cuda):
+    """Every operand -128 at K = 8192: acc = 2^27 everywhere, exact in
+    int32 and in f32."""
+    M, K, N = 130, 8192, 260
+    a = torch.full((M, K), -128, dtype=torch.int8, device=cuda)
+    b = torch.full((K, N), -128, dtype=torch.int8, device=cuda)
+    acc = _launched(QM.LAUNCHES, "qmatmul_i32", lambda: QM.qmatmul_i32(a, b))
+    assert bool((acc == 2 ** 27).all())
+    _qmm_check(a, b, torch.ones((M, 1), device=cuda),
+               torch.full((1, N), 0.5, device=cuda))
+
+
+# (K, N): byte-wise loads (N % 16 != 0) and 16-byte loads, K % 16 != 0,
+# several pack tiles each way
+PACKS = [(53, 70), (520, 1000), (264, 4160), (300, 64), (1, 1)]
+
+
+@pytest.mark.parametrize("K,N", PACKS, ids=[f"{k}x{n}" for k, n in PACKS])
+def test_pack_pre_pass_alone(cuda, K, N):
+    """bT == b.t() zero-padded to K16: tells a wrong transpose from a
+    wrong wgmma descriptor."""
+    b = _qmm_operands(cuda, 1, K, N, K + N, offset=int(N % 16 != 0))[1]
+    bt = QM.pack_b(b)
+    torch.cuda.synchronize()
+    assert bt.shape == (N, -(-K // 16) * 16)
+    assert torch.equal(bt[:, :K], b.t()) and not bt[:, K:].any()
+    _same(bt, QM.pack_b_reference(b))
 
 
 @pytest.mark.parametrize("NB,BS", [(1000, 256), (37, 33), (5, 1)])

@@ -148,6 +148,17 @@ def test_qmatmul_kernels_equal_the_pallas_kernels(M, K, N, blk):
            rqmm.qmatmul_dequant(*map(jnp.asarray, (a, b, sa, sb)), **blocks))
 
 
+@pytest.mark.parametrize("K,N", [(70, 53), (64, 8), (1, 3), (0, 4)])
+def test_pack_b_plain_version_is_the_zero_padded_transpose(K, N):
+    """The plain version of the CUDA kernels' pack pre-pass: bT (N, K16)
+    = b.T with K rounded up to 16 and zero-filled; the card test holds
+    the pre-pass equal to it."""
+    b = _codes(np.random.default_rng(K + N), K, N)
+    want = np.zeros((N, -(-K // 16) * 16), np.int8)
+    want[:, :K] = b.T
+    _equal(qmm.pack_b(torch.from_numpy(b)), want)
+
+
 @pytest.mark.parametrize("M,K,N", [(37, 70, 53), (5, 300, 7), (130, 64, 129)])
 def test_matmul_quantized_equals_the_reference(M, K, N):
     rng = np.random.default_rng(3 * M + K)

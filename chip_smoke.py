@@ -7,7 +7,10 @@ Phases (any failure raises, and the exit code is not 0):
 
 1. print the card's name and power limit; build the four kernel
    libraries (`fused_band.cu`, `stencil.cu`, `qmatmul.cu`, `qdq.cu` under
-   `src/repro_torch/kernels/*/csrc/`), one nvcc each, in parallel;
+   `src/repro_torch/kernels/*/csrc/`) and the builds of `stencil.cu`
+   with one part of its design taken out (`STENCIL_SPLIT`; with
+   `--stencil-baseline PATH` also that source), one nvcc each, in
+   parallel;
 2. hold the band kernel against its plain PyTorch version on the card,
    island by island with `torch.equal`: usm, hcd and dus_ext at
    1080x1920, batch 2, and dus_ext at 96x96 on a saturating phase plan;
@@ -20,9 +23,16 @@ Phases (any failure raises, and the exit code is not 0):
    version;
 2b. the kernel library: hold each of its five kernels against its plain
    version with `torch.equal` and time both at the sizes users run: one
-   1080x1920 frame through a Sobel and a 5x5 blur stencil, qwen3-4b's
-   MLP up- and down-projection over 4096 tokens, and the block
-   quantization of one of its weights; beside `qmatmul_i32`, time
+   1080x1920 frame through a Sobel, a 5x5 blur and a 7x7 stencil of 9
+   random taps (the generic loop), qwen3-4b's MLP up- and
+   down-projection over 4096 tokens, and the block quantization of one
+   of its weights in f32, bf16 and f16; beside the stencil, time a
+   device-to-device copy of its input (the copy yardstick) and an empty
+   launch, the split builds in turns with the shipped kernel with the
+   L2 flushed by writing and by reading, the kernel back to back in a
+   CUDA graph, and the whole `stencil_fixed` call with its launches
+   (trace in `chiprun_out/`);
+   beside `qmatmul_i32`, time
    `torch._int_mm` on b row-major and column-major and the kernel's
    pack pre-pass alone, and print the GEMM's tile, stages, shared bytes
    and registers; then drive the library's front ends once with their
@@ -40,6 +50,7 @@ Without a CUDA card it exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -94,17 +105,22 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def cold_ms(fn, reps: int, flush) -> float:
+def cold_ms(fn, reps: int, flush, clean: bool = False) -> float:
     """Mean device time of `fn` over `reps` launches, each timed alone
     after writing `flush` evicted its inputs from the 50 MB L2.  `flush`
     is large (1 GiB, about 0.3 ms to write) so that the host has queued
     `fn`'s launches before the device reaches the start event: the time
-    is the device's, not the wrapper's Python."""
+    is the device's, not the wrapper's Python.  Writing leaves the L2
+    full of dirty lines, which `fn` then writes back as it evicts them;
+    `clean` reads `flush` instead (a sum), which leaves clean lines."""
     import torch
     fn()
     pairs = []
     for _ in range(reps):
-        flush.zero_()
+        if clean:
+            flush.sum(dtype=torch.int32)
+        else:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -113,6 +129,32 @@ def cold_ms(fn, reps: int, flush) -> float:
         pairs.append((start, stop))
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def graph_ms(fns, flush, reps: int = 5) -> float:
+    """Device time per launch of `fns` (one launch each, on buffers of
+    their own), captured once in a CUDA graph and replayed `reps` times
+    after writing `flush`: launches back to back, as a pipeline issues
+    them, without a timed launch's fixed cost or the host's pace."""
+    import torch
+    for fn in fns:          # build and configure outside the capture
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        pairs.append((start, stop))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps / len(fns)
 
 
 def least_ms(moved: int, op_counts) -> tuple:
@@ -137,14 +179,204 @@ def same(label, got, want) -> float:
     return err
 
 
-def kernel_library(dev, card):
+def ptxas_lines(name: str, kernel: str) -> list:
+    """`-Xptxas -v`'s registers and spill lines of library `name`'s
+    entry functions whose names contain `kernel`."""
+    from repro_torch.kernels import _build
+    log = _build.library_path(name).with_suffix(".log")
+    lines, entry = [], ""
+    for ln in log.read_text().splitlines() if log.exists() else []:
+        if "Compiling entry function" in ln:
+            entry = ln
+        elif kernel in entry and ("registers" in ln or "spill" in ln):
+            lines.append(ln.replace("ptxas info    :", "").strip())
+    return lines
+
+
+# builds of stencil.cu with one part of its design taken out (its
+# build-time knobs), timed beside the shipped kernel: what each part buys
+STENCIL_SPLIT = {"generic loop for every stencil": "-DSTENCIL_TEMPLATES=0",
+                 "no asynchronous ring": "-DSTENCIL_DEPTH=0",
+                 "no line buffer": "-DSTENCIL_CARRY=0",
+                 "1 block an SM": "-DSTENCIL_BLOCKS_PER_SM=1",
+                 "4 blocks an SM": "-DSTENCIL_BLOCKS_PER_SM=4",
+                 "dense weight grid (no factoring)": "-DSTENCIL_SEPARABLE=0"}
+
+
+def start_split_builds(baseline=None):
+    """One nvcc per `STENCIL_SPLIT` build, started at once, into the
+    build directory, and one for `baseline`, another source with
+    `stencil.cu`'s C interface (an older version, say), if given;
+    returns what `load_split_builds` waits on."""
+    from repro_torch.kernels import _build
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    builds = [(label, _build.SOURCES["stencil"], [flag])
+              for label, flag in STENCIL_SPLIT.items()]
+    if baseline:
+        builds.append((f"baseline {baseline}", Path(baseline).resolve(), []))
+    procs = {}
+    for k, (label, src, flags) in enumerate(builds):
+        out = _build.BUILD_DIR / f"stencil-split{k}-{os.getpid()}.so"
+        procs[label] = (out, subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(out),
+             str(src)], stdout=subprocess.DEVNULL,
+            stderr=subprocess.STDOUT))
+    return procs
+
+
+def load_split_builds(procs) -> dict:
+    import ctypes
+
+    from repro_torch.kernels import _build
+    libs = {}
+    for label, (out, proc) in procs.items():
+        if proc.wait() != 0:
+            raise RuntimeError(f"stencil split build {label!r} failed")
+        lib = ctypes.CDLL(str(out))
+        lib.stencil_launch.argtypes = \
+            _build.SIGNATURES["stencil"]["stencil_launch"]
+        lib.stencil_launch.restype = ctypes.c_int
+        libs[label] = lib
+    return libs
+
+
+def split_launch(lib, xq, taps, halo, shift, qmin, qmax):
+    """`kernel.fixedpoint_stencil`'s launch, on another build."""
+    import ctypes
+
+    import torch
+    hy, hx = halo
+    H, W = xq.shape[0] - 2 * hy, xq.shape[1] - 2 * hx
+    out = torch.empty((H, W), dtype=torch.int32, device=xq.device)
+    table = (ctypes.c_int32 * (3 * len(taps)))(*[v for t in taps for v in t])
+    rc = lib.stencil_launch(xq.data_ptr(), out.data_ptr(), H, W, table,
+                            len(taps), hy, hx, shift, qmin, qmax,
+                            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"split stencil_launch: CUDA error {rc}")
+    return out
+
+
+def stencil_extras(dev, card, flush, stencils, frame, t_in, t_out, row,
+                   split_libs) -> None:
+    """Beside the stencil kernel's rows: the copy and empty-launch
+    yardsticks, the split (each `STENCIL_SPLIT` build against the
+    shipped kernel, in turns, the L2 flushed by writing and by
+    reading), the kernel back to back in a CUDA graph, and the whole
+    `stencil_fixed` call on a frame on the card, its device time,
+    launches and the kernel's share of it.  Adds them to the result
+    line's `row`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.stencil import kernel as K
+    from repro_torch.kernels.stencil import ops as SO
+    print(f"stencil.cu ptxas, generic and 8 templates ({card}): "
+          f"{ptxas_lines('stencil', 'stencil_kernel')}", flush=True)
+    # the copy yardstick: the same bytes as the bound, no stencil; and
+    # the fixed cost of a timed launch (a 4-byte zero_)
+    xq = stencils["sobel3x3"][0]
+    dst = torch.empty_like(xq)
+    tiny = torch.empty(1, dtype=torch.int32, device=dev)
+    yard = {"copy": lambda: dst.copy_(xq), "empty launch": tiny.zero_}
+    yard_ms = {}
+    for name, fn in yard.items():
+        yard_ms[name] = {"dirty": cold_ms(fn, 50, flush),
+                         "clean": cold_ms(fn, 50, flush, clean=True)}
+    row["copy_ms"] = yard_ms["copy"]["dirty"]
+    row["yardsticks_ms"] = yard_ms
+    print(f"stencil yardsticks ({card}): copy_ of the {xq.numel() * 4} B "
+          f"padded frame into an int32 buffer, device to device, and an "
+          f"empty launch; ms with the L2 flushed by writing (dirty) and "
+          f"by reading (clean): {yard_ms}", flush=True)
+
+    # the split: every build in turns, L2 flushed both ways
+    split = {}
+    for label, args in stencils.items():
+        want = K.fixedpoint_stencil_reference(*args)
+        fns = {"shipped": lambda args=args: K.fixedpoint_stencil(*args)}
+        for name, lib in split_libs.items():
+            fn = (lambda lib=lib, args=args: split_launch(lib, *args))
+            same(f"stencil {label} {name}", (fn(),), (want,))
+            fns[name] = fn
+        ms = {k: {"dirty": 0.0, "clean": 0.0} for k in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for k in order:
+                for mode in ("dirty", "clean"):
+                    ms[k][mode] += cold_ms(fns[k], 20, flush,
+                                           clean=mode == "clean") / 2
+        split[label] = ms
+        print(f"stencil split {label} ({card}), in turns, ms with the L2 "
+              f"flushed by writing / by reading: " + ", ".join(
+                  f"{k} {v['dirty']:.4f} ({v['dirty'] / ms['shipped']['dirty']:.2f}x)"
+                  f" / {v['clean']:.4f} ({v['clean'] / ms['shipped']['clean']:.2f}x)"
+                  for k, v in ms.items()), flush=True)
+    row["split_ms"] = split
+
+    # back to back in a CUDA graph: 16 launches over 8 copies of each
+    # input (66 MB, more than the L2), the copy yardstick the same way
+    graph = {}
+    for label, args in stencils.items():
+        xs = [args[0].clone() for _ in range(8)]
+        fns = {"shipped": [lambda x=x: K.fixedpoint_stencil(x, *args[1:])
+                           for x in xs * 2]}
+        for name, lib in split_libs.items():
+            if name.startswith("baseline"):
+                fns[name] = [lambda x=x, lib=lib: split_launch(lib, x,
+                                                               *args[1:])
+                             for x in xs * 2]
+        if label == "sobel3x3":
+            dsts = [torch.empty_like(x) for x in xs]
+            fns["copy"] = [lambda x=x, d=d: d.copy_(x)
+                           for x, d in zip(xs, dsts)] * 2
+        graph[label] = {k: graph_ms(f, flush) for k, f in fns.items()}
+        del xs, fns
+        print(f"stencil {label} back to back in a CUDA graph ({card}), ms "
+              f"a launch: " + ", ".join(f"{k} {v:.4f}"
+                                        for k, v in graph[label].items()),
+              flush=True)
+    row["graph_ms"] = graph
+
+    # the whole front end on a frame already on the card
+    frame_dev = torch.from_numpy(frame).to(dev)
+    call = lambda: SO.stencil_fixed(frame_dev, SOBEL, 1 / 12,  # noqa: E731
+                                    t_in, t_out)
+    call_ms = cold_ms(call, 20, flush)
+    call()
+    torch.cuda.synchronize()
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    path = out / "stencil_fixed_trace.json"
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"
+              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kinds = {}
+    for e in events:
+        name = ("stencil_kernel" if "stencil_kernel" in e["name"]
+                else e["name"].split("<")[0][:60])
+        kinds[name] = kinds.get(name, 0) + 1
+    share = row["cases"][f"sobel3x3 {FRAME[0]}x{FRAME[1]}"]["ms"] / call_ms
+    row["call_ms"] = call_ms
+    row["call_launches"] = len(events)
+    print(f"stencil_fixed sobel {FRAME[0]}x{FRAME[1]} f32 frame on the card "
+          f"({card}): {call_ms:.4f} ms device time with the L2 flushed, "
+          f"{len(events)} device launches (kernels, copies, sets): "
+          f"{kinds}; the stencil kernel {100 * share:.1f}% of it",
+          flush=True)
+
+
+def kernel_library(dev, card, split_libs):
     """Phase 2b (see the module docstring).  Returns the result line's
     rows of the five library kernels."""
     import numpy as np
     import torch
 
     from repro_torch.core.fixedpoint import FixedPointType
-    from repro_torch.kernels import _build
     from repro_torch.kernels.qdq import kernel as QD
     from repro_torch.kernels.qdq import ops as DO
     from repro_torch.kernels.qmatmul import kernel as QM
@@ -175,20 +407,37 @@ def kernel_library(dev, card):
         rows.setdefault(name, {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
+        rows[name].setdefault("cases", {})[label] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+        return ms
 
     # stencil: one 1080p frame, Sobel / 12 u8.0 -> s9.4 (the case of
-    # benchmarks/run.py:44-46), then a 5x5 binomial blur
+    # benchmarks/run.py:44-46), a 5x5 binomial blur, and a 7x7 footprint
+    # with 9 random taps, which no template takes (the generic loop)
     frame = frames(FRAME, 30).astype(np.float32)
     t_in, t_out = FixedPointType(8, 0, False), FixedPointType(9, 4, True)
     pixels = FRAME[0] * FRAME[1]
+    g7 = np.random.default_rng(7)
+    taps7 = [(-3, -3, 5)] + [
+        (int(dy), int(dx), int(w)) for dy, dx, w in zip(
+            g7.integers(-3, 4, 8), g7.integers(-3, 4, 8),
+            g7.integers(-64, 65, 8))]
+    stencils = {}
     for label, weights, scale in (("sobel3x3", SOBEL, 1 / 12),
                                   ("blur5x5", BLUR5, 1 / 256)):
-        args = SO.stencil_operands(frame, weights, scale, t_in, t_out, dev)
+        stencils[label] = SO.stencil_operands(frame, weights, scale, t_in,
+                                              t_out, dev)
+    stencils["generic7x7"] = (
+        SO._edge_pad(SO.quantize_image(frame, t_in, dev), 3, 3), taps7,
+        (3, 3), 5, t_out.int_min, t_out.int_max)
+    for label, args in stencils.items():
         measure("stencil", f"{label} {FRAME[0]}x{FRAME[1]}",
                 lambda: (K.fixedpoint_stencil(*args),),
                 lambda: (K.fixedpoint_stencil_reference(*args),),
                 args[0].numel() * 4 + pixels * 4,
                 [(2 * len(args[1]) * pixels, PEAK_OPS_PER_S)])
+    stencil_extras(dev, card, flush, stencils, frame, t_in, t_out,
+                   rows["stencil"], split_libs)
 
     # qmatmul: int8 codes of qwen3-4b's up- and down-projection over 4096
     # tokens; torch._int_mm is the yardstick only, timed here and called
@@ -196,15 +445,8 @@ def kernel_library(dev, card):
     # column-major copy made outside the timed window (cuBLASLt's int8
     # layout)
     cfg = QM.gemm_config()
-    log = _build.library_path("qmatmul").with_suffix(".log")
-    ptxas, entry = [], ""
-    for ln in log.read_text().splitlines() if log.exists() else []:
-        if "Compiling entry function" in ln:
-            entry = ln
-        elif "qmm_kernel" in entry and ("registers" in ln or "spill" in ln):
-            ptxas.append(ln.replace("ptxas info    :", "").strip())
     print(f"qmatmul GEMM ({card}): {cfg}; ptxas, both GEMM kernels: "
-          f"{ptxas}", flush=True)
+          f"{ptxas_lines('qmatmul', 'qmm_kernel')}", flush=True)
     shapes = {}
     for M, Kd, N in (QWEN_UP, QWEN_DOWN):
         mm_label = f"{M}x{Kd}x{N}"
@@ -310,6 +552,22 @@ def kernel_library(dev, card):
             lambda: (QD.block_dequantize(q, s),),
             lambda: (QD.block_dequantize_reference(q, s),),
             n + 4 * nb + 4 * n, [(2 * n, PEAK_OPS_PER_S)])
+    # the same weight in bf16 and f16: 2-byte loads, codes and scales as
+    # for f32; dequantizing their codes writes f32, as for f32
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
+        xn = x.to(dt)
+        qn, sn = QD.block_quantize(xn)
+        measure("block_quantize", f"{qd_label} {tag}",
+                lambda: QD.block_quantize(xn),
+                lambda: QD.block_quantize_reference(xn), 2 * n + n + 4 * nb,
+                [(6 * n + nb, PEAK_OPS_PER_S)])
+        measure("block_dequantize", f"{qd_label} codes of {tag}",
+                lambda: (QD.block_dequantize(qn, sn),),
+                lambda: (QD.block_dequantize_reference(qn, sn),),
+                n + 4 * nb + 4 * n, [(2 * n, PEAK_OPS_PER_S)])
+    w16 = w.to(torch.bfloat16)
+    frame_u8 = frame.astype(np.uint8)
+    t_in2 = FixedPointType(10, 2, False)
 
     # -- the library path through its front ends, counts from 0 --------
     counters = {"stencil": K.LAUNCHES, "qmatmul_i32": QM.LAUNCHES,
@@ -326,6 +584,8 @@ def kernel_library(dev, card):
     fq = DO.fake_quant(w)
     codes, scales, pad = DO.compress(w)
     back = DO.decompress(codes, scales, pad, w.shape)
+    fq16 = DO.fake_quant(w16)
+    sobel_u8 = SO.stencil_fixed(frame_u8, SOBEL, 1 / 12, t_in2, t_out)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: c[name] for name, c in counters.items()}
@@ -359,13 +619,25 @@ def kernel_library(dev, card):
     assert fq.shape == w.shape and float(slack.max()) <= 0.0, \
         "fake_quant strays more than s/2"
     assert torch.equal(back, fq), "decompress(compress(w)) != fake_quant(w)"
-    print(f"library path ({card}): stencil_fixed sobel + blur "
-          f"{FRAME[0]}x{FRAME[1]}, qmatmul_i32 and matmul_quantized "
-          f"{mm_label}, fake_quant + compress/decompress {qd_label} in "
+    # bf16 through the front end: the plain versions' composition on the
+    # card (held to the JAX package by the CPU tests)
+    want16 = QD.block_dequantize_reference(*QD.block_quantize_reference(
+        w16.reshape(-1, QDQ_BLOCK))).reshape(w.shape).to(torch.bfloat16)
+    assert fq16.dtype == torch.bfloat16 and torch.equal(fq16, want16), \
+        "fake_quant on bf16 != plain version"
+    # an integer frame at beta_in 2 (it wraps in uint8, as the reference)
+    assert torch.equal(sobel_u8.cpu(), SO.stencil_fixed(
+        frame_u8, SOBEL, 1 / 12, t_in2, t_out, device="cpu")), \
+        "stencil_fixed on a uint8 frame: card != CPU"
+    print(f"library path ({card}): stencil_fixed sobel + blur + sobel "
+          f"on uint8 at beta_in 2 {FRAME[0]}x{FRAME[1]}, qmatmul_i32 and "
+          f"matmul_quantized {mm_label}, fake_quant (f32 and bf16) + "
+          f"compress/decompress {qd_label} in "
           f"{wall * 1e3:.2f} ms (host clock); launches {launches}; "
           f"matmul_quantized relative error vs f32 matmul {rel:.3e}; "
           f"fake_quant within s/2; card == CPU on the stencils and a "
-          f"256x512x384 matmul_quantized", flush=True)
+          f"256x512x384 matmul_quantized; bf16 fake_quant == plain "
+          f"version", flush=True)
 
     sources = {"stencil": ("stencil/csrc/stencil.cu",
                            "stencil/kernel.py:89"),
@@ -635,6 +907,12 @@ def band_kernel_times(dev, card, params) -> dict:
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--stencil-baseline", metavar="PATH",
+                    help="another source with stencil.cu's C interface, "
+                         "timed in phase 2b beside the split builds")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -654,9 +932,11 @@ def main() -> int:
 
     # -- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
+    split_procs = start_split_builds(args.stencil_baseline)
     paths = _build.build()
-    print(f"built {sorted(paths)} in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    split_libs = load_split_builds(split_procs)
+    print(f"built {sorted(paths)} and {len(split_libs)} split builds of "
+          f"stencil.cu in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # -- 2. kernel against its plain version ------------------------------
     params = {"usm": dict(usm.DEFAULT_PARAMS)}
@@ -682,7 +962,7 @@ def main() -> int:
     band = band_kernel_times(dev, card, params)
 
     # -- 2b. the kernel library ---------------------------------------------
-    library_rows = kernel_library(dev, card)
+    library_rows = kernel_library(dev, card, split_libs)
 
     # -- 3. serving: the main path ----------------------------------------
     n_frames = 16

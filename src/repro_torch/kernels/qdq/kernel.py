@@ -1,7 +1,10 @@
 """Block quantize / dequantize: per-row absmax int8 codes and f32 scales.
 
 Replaces the TPU kernels `repro/kernels/qdq/kernel.py:block_quantize`
-and `block_dequantize` with one CUDA source, `csrc/qdq.cu`.  The plain
+and `block_dequantize` with one CUDA source, `csrc/qdq.cu`.
+`block_quantize` takes f32, bf16 or f16 and computes in that dtype, as
+the reference's compiled kernel does (`absmax_scale`, `quantize_codes`);
+the scales come out f32 either way.  The plain
 versions sit beside the wrappers: the wrappers run them for CPU tensors,
 and on CUDA tensors launch the kernel or raise, counting launches in
 `LAUNCHES`.  The reference's `rows_per_tile` has no meaning for the
@@ -20,6 +23,10 @@ _LAUNCH_LOCK = threading.Lock()
 QMAX = 127
 
 
+# the dtypes `block_quantize` takes, by the code its CUDA entry point takes
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
 def inv_qmax(qmax: int = QMAX) -> float:
     """f32(1 / qmax).  The reference writes the scale as ``max|x| /
     qmax``, but XLA compiles that division by a constant as a product
@@ -30,6 +37,37 @@ def inv_qmax(qmax: int = QMAX) -> float:
     return float(np.float32(1) / np.float32(qmax))
 
 
+def absmax_scale(x: torch.Tensor, dim: int, qmax: int = QMAX
+                 ) -> torch.Tensor:
+    """``max|x| / qmax`` along `dim` (kept), 1 where that is 0, in x's
+    dtype, as XLA compiles the reference's ``jnp.max(jnp.abs(x)) /
+    qmax`` for that dtype (the Pallas kernel and every jitted caller
+    alike; an eager call may differ):
+
+    * f32: a product with f32(1 / qmax) (`inv_qmax`);
+    * bf16: a true division, f32(max) / qmax rounded to bf16;
+    * f16: a product with f16(1 / qmax), rounded to f16.
+
+    Each narrow operation is one f32 operation rounded to the narrow
+    type, which is the correctly rounded narrow result (f32 carries more
+    than twice the narrow significand and two bits).  The maximum
+    propagates NaN, as `jnp.max` does."""
+    m = torch.amax(torch.abs(x), dim=dim, keepdim=True)
+    if x.dtype == torch.float32:
+        s = m * inv_qmax(qmax)
+    elif x.dtype == torch.bfloat16:
+        # a tensor divisor: torch turns a division by a Python number on
+        # the card into a product with its reciprocal
+        s = (m.float() / torch.full_like(m, qmax, dtype=torch.float32)
+             ).to(torch.bfloat16)
+    elif x.dtype == torch.float16:
+        s = (m.float() * float(np.float16(1 / qmax))).to(torch.float16)
+    else:
+        raise TypeError(f"absmax_scale: want float32, bfloat16 or float16, "
+                        f"got {x.dtype}")
+    return torch.where(s == 0.0, torch.ones_like(s), s)
+
+
 def int8_codes(v: torch.Tensor, qmax: int = QMAX) -> torch.Tensor:
     """``clip(rint(v), -qmax - 1, qmax)`` as int8; `torch.round` is half
     to even, as `jnp.rint`.  NaN (which the clip passes through) becomes
@@ -38,14 +76,23 @@ def int8_codes(v: torch.Tensor, qmax: int = QMAX) -> torch.Tensor:
     return torch.where(torch.isnan(r), 0.0, r).to(torch.int8)
 
 
+def quantize_codes(x: torch.Tensor, s: torch.Tensor, qmax: int = QMAX
+                   ) -> torch.Tensor:
+    """int8 codes of ``x / s`` in x's dtype: a true division (never a
+    product with 1 / s), rounded to x's dtype before `rint` where that
+    is bf16 or f16, as the reference's compiled kernel rounds it."""
+    q = x / s if x.dtype == torch.float32 else (x.float() / s.float()).to(
+        x.dtype)
+    return int8_codes(q, qmax)
+
+
 def block_quantize_reference(x: torch.Tensor
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: x (NB, BS) f32 -> (codes int8 (NB, BS), scales f32
-    (NB, 1)); ``s = max|x| * f32(1/127)`` per row (NaN-propagating, 1
-    where it is 0), codes ``clip(rint(x / s))`` by a true division."""
-    s = torch.amax(torch.abs(x), dim=-1, keepdim=True) * inv_qmax()
-    s = torch.where(s == 0.0, 1.0, s)
-    return int8_codes(x / s), s.to(torch.float32)
+    """Plain version: x (NB, BS) f32, bf16 or f16 -> (codes int8 (NB,
+    BS), scales f32 (NB, 1)); per row ``s = absmax_scale(x)`` and codes
+    ``quantize_codes(x, s)``, in x's dtype."""
+    s = absmax_scale(x, -1)
+    return quantize_codes(x, s), s.to(torch.float32)
 
 
 def block_dequantize_reference(q: torch.Tensor, s: torch.Tensor
@@ -54,25 +101,28 @@ def block_dequantize_reference(q: torch.Tensor, s: torch.Tensor
     return q.to(torch.float32) * s
 
 
-def _launch(name: str, operands, outs) -> None:
+def _launch(name: str, operands, outs, *scalars) -> None:
     from repro_torch.kernels import _build
     NB, BS = operands[0].shape
-    _build.launch("qdq", f"{name}_launch", (*operands, *outs), NB, BS)
+    _build.launch("qdq", f"{name}_launch", (*operands, *outs), NB, BS,
+                  *scalars)
     with _LAUNCH_LOCK:
         LAUNCHES[name] += 1
 
 
 def block_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (NB, BS) f32 -> (codes int8 (NB, BS), scales f32 (NB, 1))."""
-    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] == 0:
-        raise ValueError(f"block_quantize: want f32 (NB, BS) with BS > 0, "
-                         f"got {x.dtype} {tuple(x.shape)}")
+    """x: (NB, BS) f32, bf16 or f16 -> (codes int8 (NB, BS), scales f32
+    (NB, 1)).  On a CUDA tensor the kernel's instantiation for x's dtype
+    runs."""
+    if x.dtype not in DTYPES or x.dim() != 2 or x.shape[1] == 0:
+        raise ValueError(f"block_quantize: want f32, bf16 or f16 (NB, BS) "
+                         f"with BS > 0, got {x.dtype} {tuple(x.shape)}")
     if x.device.type == "cpu":
         return block_quantize_reference(x)
     NB, BS = x.shape
     q = torch.empty((NB, BS), dtype=torch.int8, device=x.device)
     s = torch.empty((NB, 1), dtype=torch.float32, device=x.device)
-    _launch("block_quantize", (x,), (q, s))
+    _launch("block_quantize", (x,), (q, s), DTYPES[x.dtype])
     return q, s
 
 

@@ -912,9 +912,17 @@ def _launch(enc: EncodedProgram, grid: int, batch: Optional[int],
 Tap = Tuple[int, int, int]      # (dy, dx, w_q)
 Halo = Union[int, Tuple[int, int]]
 MAX_TAPS = 128                  # the taps table of `csrc/stencil.cu`
-_STENCIL_TILE = (16, 64)        # output rows, columns of one CUDA block
 _MAX_SMEM = 232448 - 16 * MAX_TAPS  # dynamic shared memory of one block
 _INT32 = (-(1 << 31), (1 << 31) - 1)
+
+
+def _stencil_smem_bytes(hy: int, hx: int) -> int:
+    """One block's dynamic shared memory in `csrc/stencil.cu` (its
+    `smem_bytes`): a ring of 3 steps of 32 rows plus 2hy rows, each slot
+    a 128-column strip's padded row in whole 16-byte chunks, and two
+    tables of the 32 + 2hy rows of a step's window."""
+    pitch = 4 * ((128 + 2 * hx + 6) // 4)
+    return 4 * ((3 * 32 + 2 * hy) * pitch + 2 * (32 + 2 * hy))
 
 
 def _stencil_args(x_q: torch.Tensor, taps: Sequence[Tap], halo: Halo,
@@ -975,8 +983,7 @@ def fixedpoint_stencil(x_q: torch.Tensor, taps: Sequence[Tap],
     if len(taps) > MAX_TAPS:
         raise ValueError(f"fixedpoint_stencil: {len(taps)} taps, the kernel "
                          f"takes at most {MAX_TAPS}")
-    th, tw = _STENCIL_TILE
-    if 4 * (th + 2 * hy) * (tw + 2 * hx) > _MAX_SMEM:
+    if _stencil_smem_bytes(hy, hx) > _MAX_SMEM:
         raise ValueError(f"fixedpoint_stencil: halo {(hy, hx)} too large "
                          f"for one block's shared memory")
     out = torch.empty((H, W), dtype=torch.int32, device=x_q.device)

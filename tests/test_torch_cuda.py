@@ -145,23 +145,129 @@ def _launched(counters, name, fn):
     return out
 
 
-STENCILS = [("sobel", 37, 70, 1, 1, 3), ("blur5x5", 48, 129, 2, 2, 8),
-            ("ties", 20, 64, 0, 1, 2), ("shift0", 17, 17, 1, 1, 0),
-            ("wide_halo", 40, 90, 40, 40, 5)]
+# (name, H, W, hy, hx, shift, taps): taps "random" (9 random taps in
+# the halo), "dense" (every position, so a template's whole weight
+# grid), "separable" (an outer product of integer vectors, with a zero
+# row, which the host factors), "many" (128 taps), "wrap" and
+# "separable_wrap" (sums that overflow int32), "swap" (qmin > qmax).
+# Halos (1, 1), (2, 2), (0, 1), (0, 2), (0, 3), (1, 0), (2, 0), (3, 0)
+# take the templates, every other halo the generic loop.
+STENCILS = [("sobel", 37, 70, 1, 1, 3, "random"),
+            ("blur5x5", 48, 129, 2, 2, 8, "random"),
+            ("ties", 20, 64, 0, 1, 2, "random"),
+            ("shift0", 17, 17, 1, 1, 0, "random"),
+            ("wide_halo", 40, 90, 40, 40, 5, "random"),
+            # W % 4 != 0 and an odd padded width: rows 4 bytes apart mod 16
+            ("odd_pitch", 45, 101, 1, 1, 4, "dense"),
+            ("odd_pitch_generic", 45, 97, 3, 3, 4, "random"),
+            # smaller than one step or one strip, 1 row, 1 column
+            ("tiny", 5, 7, 1, 1, 2, "dense"),
+            ("one_row", 1, 300, 2, 2, 6, "dense"),
+            ("one_column", 300, 1, 1, 1, 3, "dense"),
+            ("one_pixel", 1, 1, 2, 2, 1, "random"),
+            # every template footprint, dense
+            ("t1x3", 33, 200, 0, 1, 2, "dense"),
+            ("t1x5", 33, 200, 0, 2, 2, "dense"),
+            ("t1x7", 70, 257, 0, 3, 3, "dense"),
+            ("t3x1", 70, 257, 1, 0, 2, "dense"),
+            ("t5x1", 70, 257, 2, 0, 2, "dense"),
+            ("t7x1", 70, 257, 3, 0, 3, "dense"),
+            ("t3x3", 70, 257, 1, 1, 3, "dense"),
+            ("t5x5", 70, 257, 2, 2, 6, "dense"),
+            # the generic loop: a 7x7 footprint with 9 taps, 128 taps,
+            # horizontal-only and vertical-only footprints
+            ("g7x7", 130, 300, 3, 3, 5, "random"),
+            ("g128", 64, 131, 5, 5, 9, "many"),
+            ("g1x11", 50, 150, 0, 5, 4, "random"),
+            ("g9x1", 50, 150, 4, 0, 4, "random"),
+            ("s3x3", 70, 257, 1, 1, 3, "separable"),
+            ("s5x5", 70, 257, 2, 2, 6, "separable"),
+            ("s1x7", 70, 257, 0, 3, 3, "separable"),
+            ("s7x1", 70, 257, 3, 0, 3, "separable"),
+            ("s5x5_wrap", 40, 96, 2, 2, 0, "separable_wrap"),
+            ("wrap", 40, 96, 2, 2, 0, "wrap"),
+            ("wrap_generic", 40, 96, 3, 2, 0, "wrap"),
+            ("swap", 30, 64, 1, 1, 2, "swap"),
+            ("shift31", 30, 64, 1, 1, 31, "wrap"),
+            # 1080p: each block walks several steps and runs into the
+            # next strip, carrying its row ring from step to step
+            ("frame_sobel", 1080, 1920, 1, 1, 3, "dense"),
+            ("frame_blur", 1080, 1920, 2, 2, 8, "separable"),
+            ("frame_generic", 1080, 1920, 3, 3, 5, "random")]
 
 
-@pytest.mark.parametrize("name,H,W,hy,hx,shift", STENCILS,
+def _stencil_operands(dev, H, W, hy, hx, kind, seed, offset=0):
+    """(xq, taps, qmin, qmax); with `offset`, xq is a contiguous view that
+    many int32 into a larger buffer (its rows then start elsewhere mod
+    16 bytes)."""
+    g = np.random.default_rng(seed)
+    cells = [(dy, dx) for dy in range(-hy, hy + 1)
+             for dx in range(-hx, hx + 1)]
+    if kind == "dense":
+        taps = [(dy, dx, int(g.integers(-64, 65)) or 1) for dy, dx in cells]
+    elif kind.startswith("separable"):
+        big = 2 ** 10 if kind.endswith("wrap") else 9
+        a = g.integers(-big, big + 1, 2 * hy + 1)
+        b = g.integers(-big, big + 1, 2 * hx + 1)
+        a[0], b[0] = a[0] or 5, b[0] or 3
+        if hy:
+            a[-1] = 0
+        taps = [(dy, dx, int(a[dy + hy] * b[dx + hx])) for dy, dx in cells
+                if a[dy + hy] * b[dx + hx]]
+    elif kind == "many":
+        taps = [cells[int(i)] + (int(g.integers(-64, 65)),)
+                for i in g.integers(0, len(cells), 128)]
+    else:
+        n = 9 if kind != "wrap" else 2 * len(cells)
+        taps = [cells[int(i)] + (int(g.integers(-64, 65)),)
+                for i in g.integers(0, len(cells), n)]
+    lo, hi = -300, 300
+    if kind == "wrap":
+        taps = [(dy, dx, int(g.integers(-(2 ** 20), 2 ** 20)))
+                for dy, dx, _ in taps]
+    if kind.endswith("wrap"):
+        lo, hi = -(2 ** 20), 2 ** 20
+    shape = (H + 2 * hy, W + 2 * hx)
+    x = g.integers(lo, hi, (offset + shape[0] * shape[1],)).astype(np.int32)
+    xq = torch.from_numpy(x).to(dev)[offset:].view(shape)
+    qmin, qmax = -(2 ** 11), 2 ** 11 - 1
+    if kind.endswith("wrap"):
+        qmin, qmax = -(2 ** 31), 2 ** 31 - 1
+    if kind == "swap":
+        qmin, qmax = 100, -100
+    return xq, taps, qmin, qmax
+
+
+@pytest.mark.parametrize("name,H,W,hy,hx,shift,kind", STENCILS,
                          ids=[c[0] for c in STENCILS])
-def test_stencil_kernel_equals_plain_version(cuda, name, H, W, hy, hx, shift):
-    g = np.random.default_rng(H * W)
-    taps = [(int(g.integers(-hy, hy + 1)), int(g.integers(-hx, hx + 1)),
-             int(g.integers(-64, 65))) for _ in range(9)]
-    xq = torch.from_numpy(g.integers(-300, 300, (H + 2 * hy, W + 2 * hx))
-                          .astype(np.int32)).to(cuda)
-    args = (taps, (hy, hx), shift, -(2 ** 11), 2 ** 11 - 1)
+def test_stencil_kernel_equals_plain_version(cuda, name, H, W, hy, hx, shift,
+                                             kind):
+    xq, taps, qmin, qmax = _stencil_operands(cuda, H, W, hy, hx, kind, H * W)
+    args = (taps, (hy, hx), shift, qmin, qmax)
     got = _launched(K.LAUNCHES, "stencil",
                     lambda: K.fixedpoint_stencil(xq, *args))
-    _same(got, K.fixedpoint_stencil_reference(xq, *args))
+    want = K.fixedpoint_stencil_reference(xq, *args)
+    _same(got, want)
+    if kind.endswith("wrap"):   # the int32 sums did wrap
+        acc = sum(w * xq[hy + dy:hy + dy + H, hx + dx:hx + dx + W].double()
+                  for dy, dx, w in taps)
+        assert bool((acc.abs() >= 2 ** 31).any())
+    if kind == "swap":
+        assert bool((got == qmax).all())
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_stencil_kernel_on_an_input_off_16_bytes(cuda, offset):
+    """xq 4, 8 or 12 bytes into its buffer: every row's offset in its
+    ring slot moves, on the template and the generic path."""
+    for hy, hx, kind in ((1, 1, "dense"), (3, 3, "random")):
+        xq, taps, qmin, qmax = _stencil_operands(cuda, 50, 131, hy, hx, kind,
+                                                 offset, offset=offset)
+        assert xq.data_ptr() % 16 and xq.is_contiguous()
+        args = (taps, (hy, hx), 3, qmin, qmax)
+        _same(_launched(K.LAUNCHES, "stencil",
+                        lambda: K.fixedpoint_stencil(xq, *args)),
+              K.fixedpoint_stencil_reference(xq, *args))
 
 
 # (M, K, N): ragged M, N and K across several 128 x 256 tiles; a K that
@@ -242,10 +348,15 @@ def test_pack_pre_pass_alone(cuda, K, N):
     _same(bt, QM.pack_b_reference(b))
 
 
-@pytest.mark.parametrize("NB,BS", [(1000, 256), (37, 33), (5, 1)])
-def test_block_kernels_equal_plain_versions(cuda, NB, BS):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("NB,BS", [(1000, 256), (37, 33), (5, 1), (40, 6)])
+def test_block_kernels_equal_plain_versions(cuda, NB, BS, dtype):
+    """Each instantiation of block_quantize, with BS % 4 != 0 (37 x 33,
+    40 x 6) and rows holding NaN or inf."""
     g = torch.Generator(device=cuda).manual_seed(NB)
-    x = torch.randn((NB, BS), device=cuda, generator=g) * 10
+    x = (torch.randn((NB, BS), device=cuda, generator=g)
+         * torch.rand((NB, 1), device=cuda, generator=g) * 100).to(dtype)
     x[0] = 0.0
     x[1, 0], x[2, -1] = float("nan"), float("inf")
     q, s = _launched(QD.LAUNCHES, "block_quantize",
@@ -275,3 +386,17 @@ def test_front_ends_on_the_card_equal_the_cpu(cuda):
     q, s, pad = qdq_ops.compress(x)
     _same(qdq_ops.decompress(q, s, pad, x.shape).cpu(),
           qdq_ops.fake_quant(x, device="cpu"))
+    for dtype in (torch.bfloat16, torch.float16):
+        xn = torch.from_numpy(x * 30).to(dtype)
+        _same(qdq_ops.fake_quant(xn).cpu(),
+              qdq_ops.fake_quant(xn, device="cpu"))
+        _same(qmm_ops.matmul_quantized(a_n := torch.from_numpy(a).to(dtype),
+                                       b_n := torch.from_numpy(b).to(dtype)
+                                       ).cpu(),
+              qmm_ops.matmul_quantized(a_n, b_n, device="cpu"))
+    for img in (g.integers(0, 256, (72, 130)).astype(np.uint8),
+                g.integers(-3000, 3000, (72, 130)).astype(np.int16)):
+        tin2 = FixedPointType(10, 2, False)
+        _same(st_ops.stencil_fixed(img, SOBEL, 1 / 12, tin2, tout).cpu(),
+              st_ops.stencil_fixed(img, SOBEL, 1 / 12, tin2, tout,
+                                   device="cpu"))

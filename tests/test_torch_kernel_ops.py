@@ -5,9 +5,15 @@ and `block_dequantize` (the wrappers, which run their plain versions on
 CPU tensors) against the Pallas kernels in interpret mode, and the front
 ends `stencil_fixed`, `matmul_quantized`, `fake_quant`, `compress` and
 `decompress` against the reference's.  Tolerance 0 everywhere, dtype
-included: all of it is exact integer arithmetic or the same f32
-operations in the same order.  The reference runs at JAX's default x32.
+included: all of it is exact integer arithmetic or the same f32, bf16
+and f16 operations in the same order.  The reference runs at JAX's
+default x32; its front ends are jitted, so the port follows XLA's
+compiled forms, which differ by dtype (`qdq.kernel.absmax_scale`).
 """
+import functools
+
+import jax
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -32,8 +38,25 @@ SOBEL = [[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]]
 BLUR5 = [[a * b for b in (1, 4, 6, 4, 1)] for a in (1, 4, 6, 4, 1)]
 
 
+def _np(t):
+    """A CPU tensor as numpy, bf16 as ml_dtypes' bfloat16 (same bits)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _narrow(x32: np.ndarray, dtype: torch.dtype):
+    """f32 values rounded into `dtype`: (torch tensor, the same bits as
+    a numpy array for JAX)."""
+    t = torch.from_numpy(x32).to(dtype)
+    return t, _np(t)
+
+
+NARROW = [torch.bfloat16, torch.float16]
+
+
 def _equal(got, want):
-    got = got.numpy() if isinstance(got, torch.Tensor) else got
+    got = _np(got) if isinstance(got, torch.Tensor) else got
     want = np.asarray(want)
     assert got.dtype == want.dtype, (got.dtype, want.dtype)
     np.testing.assert_array_equal(got, want)
@@ -127,6 +150,84 @@ def test_stencil_fixed_width_budget_raises():
                              FixedPointType(9, 4), device="cpu")
 
 
+def _image(dtype: str, rng) -> np.ndarray:
+    """A 24x40 image of `dtype` whose values reach the wrap, overflow
+    and rounding cases of `quantize_image` at beta_in 2."""
+    shape = (24, 40)
+    if dtype == "bool":
+        return rng.integers(0, 2, shape).astype(bool)
+    if dtype in ("float16", "bfloat16", "float32", "float64"):
+        x = rng.uniform(0, 255, shape)
+        x[0, :4] = [60000.0, 4095.4, 1023.5, 2.5]     # f16 inf at 4x; ties
+        return x.astype(ml_dtypes.bfloat16 if dtype == "bfloat16" else dtype)
+    info = np.iinfo(dtype)
+    lo, hi = max(info.min, -(2 ** 40)), min(info.max, 2 ** 40)
+    x = rng.integers(lo, hi, shape, dtype=np.int64 if lo < 0 else np.uint64)
+    x[1, :6] = [0, 1, 2, 63, 64, 255] if lo >= 0 or hi > 255 else 0
+    return x.astype(dtype)
+
+
+IMAGE_DTYPES = ["uint8", "int8", "int16", "uint16", "int32", "uint32",
+                "int64", "bool", "float16", "bfloat16", "float32",
+                "float64"]
+
+
+@pytest.mark.parametrize("beta", [0, 2])
+@pytest.mark.parametrize("dtype", IMAGE_DTYPES)
+def test_stencil_fixed_on_image_dtypes_equals_the_reference(dtype, beta):
+    """Each image dtype is quantized as the reference's jit quantizes
+    it: integers scaled and wrapped in their own dtype (a uint8 image
+    times 4 keeps its low 8 bits), floats scaled, rounded and clipped in
+    their own dtype against bounds rounded into it (f16(4095) = 4096),
+    f64 taken as f32, the int32 cast saturating."""
+    img = _image(dtype, np.random.default_rng(IMAGE_DTYPES.index(dtype)))
+    tin = RefType(10, beta, False)
+    tout = RefType(9, 4, True)
+    want = rst_ops.stencil_fixed(jnp.asarray(img), SOBEL, 1 / 12, tin, tout)
+    port_img = (torch.from_numpy(img.view(np.int16)).view(torch.bfloat16)
+                if dtype == "bfloat16" else img)
+    got = st_ops.stencil_fixed(port_img, SOBEL, 1 / 12,
+                               FixedPointType(10, beta, False),
+                               FixedPointType(9, 4, True), device="cpu")
+    _equal(got, want)
+
+
+def test_quantize_image_wraps_integers_and_rounds_bounds_as_the_reference():
+    """The cases the dtype test relies on, stated outright."""
+    tin = FixedPointType(10, 2, False)
+    u8 = st_ops.quantize_image(np.array([[63, 64, 200]], np.uint8), tin,
+                               device="cpu")
+    assert u8.tolist() == [[252, 0, 32]]            # 4x, mod 256
+    f16 = st_ops.quantize_image(np.array([[1023.75, 60000]], np.float16),
+                                tin, device="cpu")
+    assert f16.tolist() == [[4096, 4096]]           # f16(4095) = 4096; inf
+    i64 = st_ops.quantize_image(np.array([[2 ** 40 + 5]]), tin,
+                                device="cpu")
+    assert i64.tolist() == [[20]]                   # int64 -> int32 first
+
+
+def test_stencil_fixed_f16_image_past_its_range_equals_the_reference():
+    """beta_in 16: 2^16 is inf in f16, so 0 * 2^16 is NaN (code 0) and
+    every other pixel inf, clipped against an f16 bound that is inf too
+    and saturated by the int32 cast."""
+    img = np.array([[0, 1e-3, 1, 7]] * 4, np.float16)
+    tin, tout = (2, 16, False), (9, 4, True)
+    want = rst_ops.stencil_fixed(jnp.asarray(img), SOBEL, 1 / 12,
+                                 RefType(*tin), RefType(*tout))
+    got = st_ops.stencil_fixed(img, SOBEL, 1 / 12, FixedPointType(*tin),
+                               FixedPointType(*tout), device="cpu")
+    _equal(got, want)
+    q = st_ops.quantize_image(img, FixedPointType(*tin), device="cpu")
+    assert q[0].tolist() == [0] + [2 ** 31 - 1] * 3
+
+
+def test_stencil_fixed_raises_on_images_it_cannot_match():
+    with pytest.raises(TypeError, match="complex"):
+        st_ops.stencil_fixed(np.ones((8, 8), np.complex64), SOBEL, 1 / 12,
+                             FixedPointType(8, 0, False),
+                             FixedPointType(9, 4), device="cpu")
+
+
 # ---------------------------------------------------------------------------
 # qmatmul
 # ---------------------------------------------------------------------------
@@ -167,6 +268,54 @@ def test_matmul_quantized_equals_the_reference(M, K, N):
     a[1] = 0.0                                    # a zero row: scale 1
     want = rqmm_ops.matmul_quantized(jnp.asarray(a), jnp.asarray(b))
     _equal(qmm_ops.matmul_quantized(a, b, device="cpu"), want)
+
+
+@pytest.mark.parametrize("M,K,N", [(64, 96, 32), (37, 70, 53)])
+@pytest.mark.parametrize("dtype", NARROW, ids=str)
+def test_matmul_quantized_narrow_equals_the_reference(dtype, M, K, N):
+    """bf16 and f16 operands are quantized in their own dtype: absmax,
+    the scale rule of that dtype, ``a / s`` rounded to it, rint."""
+    rng = np.random.default_rng(0)
+    a, a_np = _narrow(rng.normal(size=(M, K)).astype(np.float32), dtype)
+    b, b_np = _narrow(rng.normal(size=(K, N)).astype(np.float32), dtype)
+    want = rqmm_ops.matmul_quantized(jnp.asarray(a_np), jnp.asarray(b_np),
+                                     block=32)
+    got = qmm_ops.matmul_quantized(a, b, device="cpu")
+    _equal(got, want)
+    # the f32 route (upcast first) is not the reference's
+    up = qmm_ops.matmul_quantized(a.float(), b.float(), device="cpu")
+    assert not torch.equal(up, got)
+
+
+def _helper_input(dtype):
+    """Queue 3's 2000x64 normal rows, in `dtype`."""
+    x = np.random.default_rng(0).normal(size=(2000, 64)).astype(np.float32)
+    return _narrow(x, dtype)
+
+
+HELPERS = {
+    "absmax_scale_rows": (functools.partial(qmm_ops.absmax_scale, axis=1),
+                          functools.partial(rqmm_ops.absmax_scale, axis=1)),
+    "absmax_scale_cols": (functools.partial(qmm_ops.absmax_scale, axis=0),
+                          functools.partial(rqmm_ops.absmax_scale, axis=0)),
+    "quantize_rows": (qmm_ops.quantize_rows, rqmm_ops.quantize_rows),
+    "quantize_cols": (qmm_ops.quantize_cols, rqmm_ops.quantize_cols),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32] + NARROW, ids=str)
+@pytest.mark.parametrize("helper", sorted(HELPERS))
+def test_quantize_helpers_follow_the_jitted_reference(helper, dtype):
+    """`absmax_scale`, `quantize_rows` and `quantize_cols` called alone
+    equal the reference's same helpers under `jax.jit` (XLA's compiled
+    scale rule), not an eager call of them."""
+    port, ref = HELPERS[helper]
+    x, x_np = _helper_input(dtype)
+    want = jax.jit(ref)(jnp.asarray(x_np))
+    got = port(x)
+    for g, w in zip(*((got, want) if isinstance(got, tuple)
+                      else ((got,), (want,)))):
+        _equal(g, w)
 
 
 # ---------------------------------------------------------------------------
@@ -213,6 +362,73 @@ def test_block_kernels_equal_the_pallas_kernels(name):
         assert s[6, 0] != nine / np.float32(127)
     _equal(qdq.block_dequantize(q, s),
            rqdq.block_dequantize(wq, ws, interpret=True))
+
+
+def _probe_rows() -> np.ndarray:
+    """4096 rows of 64 normals, each row scaled by uniform(0.01, 100):
+    the scale rules of bf16 and f16 differ on dozens of these rows."""
+    rng = np.random.default_rng(2)
+    return (rng.normal(size=(4096, 64))
+            * rng.uniform(0.01, 100, (4096, 1))).astype(np.float32)
+
+
+def _other_rule(x_np: np.ndarray, dtype) -> np.ndarray:
+    """The scale by the other dtype's rule: a product with the narrow
+    1/127 for bf16, a true division for f16."""
+    m = np.abs(x_np.astype(np.float32)).max(1, keepdims=True)
+    if dtype == torch.bfloat16:
+        s = (m * np.float32(ml_dtypes.bfloat16(1 / 127))).astype(
+            ml_dtypes.bfloat16)
+    else:
+        s = (m / np.float32(127)).astype(np.float16)
+    return s.astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["probe", "zero_row", "nan_inf"])
+@pytest.mark.parametrize("dtype", NARROW, ids=str)
+def test_block_kernels_narrow_equal_the_pallas_kernels(dtype, case):
+    x32 = _probe_rows()
+    if case == "zero_row":
+        x32 = x32[:64].copy()
+        x32[3] = 0.0
+    elif case == "nan_inf":
+        x32 = x32[:64].copy()
+        x32[4, 7], x32[9, 0] = np.nan, np.inf
+    x, x_np = _narrow(x32, dtype)
+    wq, ws = rqdq.block_quantize(jnp.asarray(x_np), interpret=True)
+    q, s = qdq.block_quantize(x)
+    _equal(q, wq)
+    _equal(s, ws)
+    if case == "probe":
+        # the rule matters on this data: the other dtype's differs
+        assert (_other_rule(x_np, dtype) != s.numpy()).sum() > 10
+    if case == "zero_row":
+        assert s[3, 0] == 1.0 and not q[3].any()
+    if case == "nan_inf":
+        assert torch.isnan(s[4, 0]) and torch.isinf(s[9, 0])
+        assert not q[4].any() and not q[9].any()
+    _equal(qdq.block_dequantize(q, s),
+           rqdq.block_dequantize(wq, ws, interpret=True))
+
+
+@pytest.mark.parametrize("shape,block", [((3, 100), 64), ((5, 300), 256)])
+@pytest.mark.parametrize("dtype", NARROW, ids=str)
+def test_fake_quant_compress_narrow_equal_the_reference(dtype, shape, block):
+    """bf16 and f16: `fake_quant` returns x's dtype, `compress` quantizes
+    in it, `decompress` returns f32; both lengths need padding."""
+    x32 = (np.random.default_rng(block).normal(size=shape) * 30).astype(
+        np.float32)
+    x, x_np = _narrow(x32, dtype)
+    got = qdq_ops.fake_quant(x, block_size=block, device="cpu")
+    assert got.dtype == dtype and tuple(got.shape) == shape
+    _equal(got, rqdq_ops.fake_quant(jnp.asarray(x_np), block_size=block))
+    wq, ws, wpad = rqdq_ops.compress(jnp.asarray(x_np), block_size=block)
+    q, s, pad = qdq_ops.compress(x, block_size=block, device="cpu")
+    assert pad == wpad > 0
+    _equal(q, wq)
+    _equal(s, ws)
+    _equal(qdq_ops.decompress(q, s, pad, shape, device="cpu"),
+           rqdq_ops.decompress(wq, ws, wpad, shape))
 
 
 @pytest.mark.parametrize("shape,block", [((3, 100), 64), ((2, 5, 7), 16),

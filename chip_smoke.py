@@ -7,10 +7,7 @@ Phases (any failure raises, and the exit code is not 0):
 
 1. print the card's name and power limit; build the four kernel
    libraries (`fused_band.cu`, `stencil.cu`, `qmatmul.cu`, `qdq.cu` under
-   `src/repro_torch/kernels/*/csrc/`) and the builds of `stencil.cu`
-   with one part of its design taken out (`STENCIL_SPLIT`; with
-   `--stencil-baseline PATH` also that source), one nvcc each, in
-   parallel;
+   `src/repro_torch/kernels/*/csrc/`), one nvcc each, in parallel;
 2. hold the band kernel against its plain PyTorch version on the card,
    island by island with `torch.equal`: usm, hcd and dus_ext at
    1080x1920, batch 2, and dus_ext at 96x96 on a saturating phase plan;
@@ -28,10 +25,9 @@ Phases (any failure raises, and the exit code is not 0):
    down-projection over 4096 tokens, and the block quantization of one
    of its weights in f32, bf16 and f16; beside the stencil, time a
    device-to-device copy of its input (the copy yardstick) and an empty
-   launch, the split builds in turns with the shipped kernel with the
-   L2 flushed by writing and by reading, the kernel back to back in a
-   CUDA graph, and the whole `stencil_fixed` call with its launches
-   (trace in `chiprun_out/`);
+   launch, the kernel with the L2 flushed by reading too and back to
+   back in a CUDA graph, and the whole `stencil_fixed` call with its
+   launches (trace in `chiprun_out/`);
    beside `qmatmul_i32`, time
    `torch._int_mm` on b row-major and column-major and the kernel's
    pack pre-pass alone, and print the GEMM's tile, stages, shared bytes
@@ -50,7 +46,6 @@ Without a CUDA card it exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
-import os
 import subprocess
 import sys
 import time
@@ -193,79 +188,13 @@ def ptxas_lines(name: str, kernel: str) -> list:
     return lines
 
 
-# builds of stencil.cu with one part of its design taken out (its
-# build-time knobs), timed beside the shipped kernel: what each part buys
-STENCIL_SPLIT = {"generic loop for every stencil": "-DSTENCIL_TEMPLATES=0",
-                 "no asynchronous ring": "-DSTENCIL_DEPTH=0",
-                 "no line buffer": "-DSTENCIL_CARRY=0",
-                 "1 block an SM": "-DSTENCIL_BLOCKS_PER_SM=1",
-                 "4 blocks an SM": "-DSTENCIL_BLOCKS_PER_SM=4",
-                 "dense weight grid (no factoring)": "-DSTENCIL_SEPARABLE=0"}
-
-
-def start_split_builds(baseline=None):
-    """One nvcc per `STENCIL_SPLIT` build, started at once, into the
-    build directory, and one for `baseline`, another source with
-    `stencil.cu`'s C interface (an older version, say), if given;
-    returns what `load_split_builds` waits on."""
-    from repro_torch.kernels import _build
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    builds = [(label, _build.SOURCES["stencil"], [flag])
-              for label, flag in STENCIL_SPLIT.items()]
-    if baseline:
-        builds.append((f"baseline {baseline}", Path(baseline).resolve(), []))
-    procs = {}
-    for k, (label, src, flags) in enumerate(builds):
-        out = _build.BUILD_DIR / f"stencil-split{k}-{os.getpid()}.so"
-        procs[label] = (out, subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(out),
-             str(src)], stdout=subprocess.DEVNULL,
-            stderr=subprocess.STDOUT))
-    return procs
-
-
-def load_split_builds(procs) -> dict:
-    import ctypes
-
-    from repro_torch.kernels import _build
-    libs = {}
-    for label, (out, proc) in procs.items():
-        if proc.wait() != 0:
-            raise RuntimeError(f"stencil split build {label!r} failed")
-        lib = ctypes.CDLL(str(out))
-        lib.stencil_launch.argtypes = \
-            _build.SIGNATURES["stencil"]["stencil_launch"]
-        lib.stencil_launch.restype = ctypes.c_int
-        libs[label] = lib
-    return libs
-
-
-def split_launch(lib, xq, taps, halo, shift, qmin, qmax):
-    """`kernel.fixedpoint_stencil`'s launch, on another build."""
-    import ctypes
-
-    import torch
-    hy, hx = halo
-    H, W = xq.shape[0] - 2 * hy, xq.shape[1] - 2 * hx
-    out = torch.empty((H, W), dtype=torch.int32, device=xq.device)
-    table = (ctypes.c_int32 * (3 * len(taps)))(*[v for t in taps for v in t])
-    rc = lib.stencil_launch(xq.data_ptr(), out.data_ptr(), H, W, table,
-                            len(taps), hy, hx, shift, qmin, qmax,
-                            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"split stencil_launch: CUDA error {rc}")
-    return out
-
-
-def stencil_extras(dev, card, flush, stencils, frame, t_in, t_out, row,
-                   split_libs) -> None:
+def stencil_extras(dev, card, flush, stencils, frame, t_in, t_out,
+                   row) -> None:
     """Beside the stencil kernel's rows: the copy and empty-launch
-    yardsticks, the split (each `STENCIL_SPLIT` build against the
-    shipped kernel, in turns, the L2 flushed by writing and by
-    reading), the kernel back to back in a CUDA graph, and the whole
-    `stencil_fixed` call on a frame on the card, its device time,
-    launches and the kernel's share of it.  Adds them to the result
-    line's `row`."""
+    yardsticks, the kernel with the L2 flushed by reading, the kernel
+    back to back in a CUDA graph, and the whole `stencil_fixed` call on
+    a frame on the card, its device time, launches and the kernel's
+    share of it.  Adds them to the result line's `row`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -290,41 +219,21 @@ def stencil_extras(dev, card, flush, stencils, frame, t_in, t_out, row,
           f"empty launch; ms with the L2 flushed by writing (dirty) and "
           f"by reading (clean): {yard_ms}", flush=True)
 
-    # the split: every build in turns, L2 flushed both ways
-    split = {}
-    for label, args in stencils.items():
-        want = K.fixedpoint_stencil_reference(*args)
-        fns = {"shipped": lambda args=args: K.fixedpoint_stencil(*args)}
-        for name, lib in split_libs.items():
-            fn = (lambda lib=lib, args=args: split_launch(lib, *args))
-            same(f"stencil {label} {name}", (fn(),), (want,))
-            fns[name] = fn
-        ms = {k: {"dirty": 0.0, "clean": 0.0} for k in fns}
-        for order in (list(fns), list(fns)[::-1]):
-            for k in order:
-                for mode in ("dirty", "clean"):
-                    ms[k][mode] += cold_ms(fns[k], 20, flush,
-                                           clean=mode == "clean") / 2
-        split[label] = ms
-        print(f"stencil split {label} ({card}), in turns, ms with the L2 "
-              f"flushed by writing / by reading: " + ", ".join(
-                  f"{k} {v['dirty']:.4f} ({v['dirty'] / ms['shipped']['dirty']:.2f}x)"
-                  f" / {v['clean']:.4f} ({v['clean'] / ms['shipped']['clean']:.2f}x)"
-                  for k, v in ms.items()), flush=True)
-    row["split_ms"] = split
+    # the L2 flushed by reading, which leaves no dirty lines to write back
+    clean = {label: cold_ms(lambda args=args: K.fixedpoint_stencil(*args),
+                            50, flush, clean=True)
+             for label, args in stencils.items()}
+    row["clean_ms"] = clean
+    print(f"stencil with the L2 flushed by reading ({card}), ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in clean.items()), flush=True)
 
     # back to back in a CUDA graph: 16 launches over 8 copies of each
     # input (66 MB, more than the L2), the copy yardstick the same way
     graph = {}
     for label, args in stencils.items():
         xs = [args[0].clone() for _ in range(8)]
-        fns = {"shipped": [lambda x=x: K.fixedpoint_stencil(x, *args[1:])
-                           for x in xs * 2]}
-        for name, lib in split_libs.items():
-            if name.startswith("baseline"):
-                fns[name] = [lambda x=x, lib=lib: split_launch(lib, x,
-                                                               *args[1:])
-                             for x in xs * 2]
+        fns = {"kernel": [lambda x=x: K.fixedpoint_stencil(x, *args[1:])
+                          for x in xs * 2]}
         if label == "sobel3x3":
             dsts = [torch.empty_like(x) for x in xs]
             fns["copy"] = [lambda x=x, d=d: d.copy_(x)
@@ -370,7 +279,7 @@ def stencil_extras(dev, card, flush, stencils, frame, t_in, t_out, row,
           flush=True)
 
 
-def kernel_library(dev, card, split_libs):
+def kernel_library(dev, card):
     """Phase 2b (see the module docstring).  Returns the result line's
     rows of the five library kernels."""
     import numpy as np
@@ -437,7 +346,7 @@ def kernel_library(dev, card, split_libs):
                 args[0].numel() * 4 + pixels * 4,
                 [(2 * len(args[1]) * pixels, PEAK_OPS_PER_S)])
     stencil_extras(dev, card, flush, stencils, frame, t_in, t_out,
-                   rows["stencil"], split_libs)
+                   rows["stencil"])
 
     # qmatmul: int8 codes of qwen3-4b's up- and down-projection over 4096
     # tokens; torch._int_mm is the yardstick only, timed here and called
@@ -907,12 +816,6 @@ def band_kernel_times(dev, card, params) -> dict:
 
 
 def main() -> int:
-    import argparse
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--stencil-baseline", metavar="PATH",
-                    help="another source with stencil.cu's C interface, "
-                         "timed in phase 2b beside the split builds")
-    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -932,11 +835,9 @@ def main() -> int:
 
     # -- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    split_procs = start_split_builds(args.stencil_baseline)
     paths = _build.build()
-    split_libs = load_split_builds(split_procs)
-    print(f"built {sorted(paths)} and {len(split_libs)} split builds of "
-          f"stencil.cu in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"built {sorted(paths)} in {time.perf_counter() - t0:.2f} s",
+          flush=True)
 
     # -- 2. kernel against its plain version ------------------------------
     params = {"usm": dict(usm.DEFAULT_PARAMS)}
@@ -962,7 +863,7 @@ def main() -> int:
     band = band_kernel_times(dev, card, params)
 
     # -- 2b. the kernel library ---------------------------------------------
-    library_rows = kernel_library(dev, card, split_libs)
+    library_rows = kernel_library(dev, card)
 
     # -- 3. serving: the main path ----------------------------------------
     n_frames = 16

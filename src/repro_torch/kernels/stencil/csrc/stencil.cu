@@ -40,6 +40,11 @@
 //     of DEPTH + 1 steps plus 2hy rows: step k needs padded rows
 //     r0 + k STEP .. + STEP + 2hy, of which only STEP are new, so every
 //     input row is read once per strip, plus 2hy rows once per run.
+//     At 1080p the carry costs 2-4% (the halo rows a step would read
+//     again come from L2), but only the carried ring fits wide halos:
+//     DEPTH + 1 whole windows take 3 (STEP + 2hy) slots, 284,928 B at
+//     a 40x40 halo, where the carried ring takes 149,248 B of the
+//     MAX_SMEM = 230,400 B a block may have.
 //   * Asynchronous rows.  Rows come in through 16-byte `cp.async`
 //     copies, one commit group per step, DEPTH = 2 steps ahead of the
 //     step being computed.  The padded pitch is not a multiple of 16
@@ -58,24 +63,16 @@
 //     factors it), a lane first sums each input row horizontally, then
 //     adds those sums down: exact, as the sums are taken mod 2^32,
 //     with fewer multiply-adds (5x5: 15 an output, not 25; 3x3: 7.5,
-//     not 9).
-//     Other stencils (up to
-//     MAX_TAPS taps and a halo that fits shared memory) take a generic
-//     loop over a tap table in shared memory; there a lane's 4 columns
-//     are 32 apart, so a warp's loads of one tap and row are 32
-//     consecutive ints, one conflict-free wavefront at any offset.
+//     not 9).  Other stencils (up to MAX_TAPS taps and a halo that fits
+//     shared memory) take a generic loop over a tap table in shared
+//     memory; there a lane's 4 columns are 32 apart, so a warp's loads
+//     of one tap and row are 32 consecutive ints, one conflict-free
+//     wavefront at any offset.
 //   * Stores: the templates store 4 outputs as one 16-byte store where
 //     W % 4 == 0 and the output is 16-byte aligned, else masked 4-byte
 //     stores; the generic loop 4-byte stores, 32 consecutive a warp.
 //   * Taps travel as a kernel parameter; no per-pixel table decoding
 //     and no division per element.
-//
-// Build-time knobs (defaults are the shipped kernel; another value only
-// for measuring what each part buys): STENCIL_DEPTH (steps in flight,
-// 0 = load a step, wait, compute), STENCIL_CARRY (0 = every step loads
-// its whole window, halo rows again), STENCIL_TEMPLATES (0 = the
-// generic loop for every stencil), STENCIL_SEPARABLE (0 = the dense
-// grid always), STENCIL_BLOCKS_PER_SM.
 //
 // Left for later: the input is the padded int32 copy the caller made;
 // a kernel that clamps its own reads and takes the narrow container
@@ -84,22 +81,6 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
-
-#ifndef STENCIL_DEPTH
-#define STENCIL_DEPTH 2
-#endif
-#ifndef STENCIL_CARRY
-#define STENCIL_CARRY 1
-#endif
-#ifndef STENCIL_TEMPLATES
-#define STENCIL_TEMPLATES 1
-#endif
-#ifndef STENCIL_BLOCKS_PER_SM
-#define STENCIL_BLOCKS_PER_SM 2
-#endif
-#ifndef STENCIL_SEPARABLE
-#define STENCIL_SEPARABLE 1
-#endif
 
 namespace {
 
@@ -110,9 +91,8 @@ constexpr int THREADS = TX * TY;
 constexpr int SW = 4 * TX;      // strip width, output columns
 constexpr int R = 4;            // output rows a lane computes per step
 constexpr int STEP = TY * R;    // output rows a block computes per step
-constexpr int DEPTH = STENCIL_DEPTH;
-constexpr bool CARRY = STENCIL_CARRY != 0;
-constexpr bool SEPARABLE = STENCIL_SEPARABLE != 0;
+constexpr int DEPTH = 2;        // steps in flight ahead of the one computed
+constexpr int BLOCKS_PER_SM = 2;
 // dynamic shared memory left beside the generic path's static tap table
 constexpr int MAX_SMEM = 232448 - 16 * MAX_TAPS;
 
@@ -192,7 +172,7 @@ __device__ __forceinline__ int32_t finish(uint32_t acc, const Geo& g) {
 // HY < 0: the generic path (halo and taps at run time); otherwise the
 // template of footprint (2HY + 1) x (2HX + 1).
 template <int HY, int HX>
-__global__ void __launch_bounds__(THREADS, STENCIL_BLOCKS_PER_SM)
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 stencil_kernel(const Geo g, const Taps taps) {
   constexpr bool GENERIC = HY < 0;
   extern __shared__ __align__(16) int32_t smem[];
@@ -220,11 +200,8 @@ stencil_kernel(const Geo g, const Taps taps) {
     const int pend = r1 + 2 * hy;                  // padded rows' end
     const int nsteps = (r1 - r0 + STEP - 1) / STEP;
 
-    // where padded row p of step k lives, and its offset in the slot
-    auto slot = [&](int k, int p) {
-      return CARRY ? (p - r0) % g.nslot
-                   : (k % (DEPTH + 1)) * g.win + (p - r0 - k * STEP);
-    };
+    // the ring slot of padded row p
+    auto slot = [&](int p) { return (p - r0) % g.nslot; };
     // a row is copied in 16-byte chunks from its 16-byte aligned-down
     // address, so it lies offset(p) = 0..3 ints into its slot
     auto offset = [&](int p) {
@@ -234,13 +211,12 @@ stencil_kernel(const Geo g, const Taps taps) {
     // empty): warp w copies rows w, w + 8, ..., lane l chunks l, l + 32
     auto issue = [&](int k) {
       if (k < nsteps) {
-        const int a = (CARRY && k > 0) ? r0 + k * STEP + 2 * hy
-                                       : r0 + k * STEP;
+        const int a = k > 0 ? r0 + k * STEP + 2 * hy : r0;
         const int b = min(pend, r0 + (k + 1) * STEP + 2 * hy);
         for (int p = a + ty; p < b; p += TY) {
           const int off = offset(p);
           const int32_t* src = g.xp + (size_t)p * g.Wp + c0 - off;
-          int32_t* dst = ring + slot(k, p) * g.pitch;
+          int32_t* dst = ring + slot(p) * g.pitch;
           const int nch = (off + cols + 3) >> 2;
           for (int ch = tx; ch < nch; ch += TX)
             cp_async16(dst + 4 * ch, src + 4 * ch);
@@ -252,23 +228,16 @@ stencil_kernel(const Geo g, const Taps taps) {
       int* inf = info + (k & 1) * g.win;
       for (int i = threadIdx.x; i < g.win; i += THREADS) {
         const int p = r0 + k * STEP + i;
-        inf[i] = slot(k, p) * g.pitch + offset(p);
+        inf[i] = slot(p) * g.pitch + offset(p);
       }
     };
 
     for (int k = 0; k < DEPTH; ++k) issue(k);
     set_info(0);
     for (int k = 0; k < nsteps; ++k) {
-      if constexpr (DEPTH > 0) {
-        cp_async_wait<(DEPTH > 0 ? DEPTH - 1 : 0)>();  // step k landed
-        __syncthreads();
-        issue(k + DEPTH);  // into the slots step k - 1 has left
-      } else {
-        __syncthreads();
-        issue(k);
-        cp_async_wait<0>();
-        __syncthreads();
-      }
+      cp_async_wait<DEPTH - 1>();  // step k landed
+      __syncthreads();
+      issue(k + DEPTH);            // into the slots step k - 1 has left
       set_info(k + 1);     // the other table: step k - 1 is done with it
 
       // this lane: output rows rs .. rs + R - 1, 4 columns (see the stores)
@@ -294,7 +263,7 @@ stencil_kernel(const Geo g, const Taps taps) {
               acc[j][c] += w * (uint32_t)p[32 * c];
           }
         }
-      } else if (SEPARABLE && taps.n) {
+      } else if (taps.n) {
         // the grid is a[dy] b[dx] (a in taps.dy, b in taps.dx): each
         // input row's 4 horizontal sums once, then a multiply-add per
         // output row it feeds
@@ -412,11 +381,8 @@ bool factor(const int* w, int ky, int kx, int* a, int* b) {
 // in whole 16-byte chunks
 int slot_pitch(int hx) { return 4 * ((SW + 2 * hx + 3 + 3) / 4); }
 
-// slots in the ring: DEPTH + 1 steps' new rows and the 2hy carried, or
-// DEPTH + 1 whole windows without the carry
-int ring_slots(int hy) {
-  return CARRY ? (DEPTH + 1) * STEP + 2 * hy : (DEPTH + 1) * (STEP + 2 * hy);
-}
+// slots in the ring: DEPTH + 1 steps' new rows and the 2hy carried
+int ring_slots(int hy) { return (DEPTH + 1) * STEP + 2 * hy; }
 
 // Dynamic shared memory of one block for halo (hy, hx), in bytes: the
 // ring and two tables of a window's rows.  The wrapper mirrors it
@@ -427,7 +393,6 @@ long long smem_bytes(int hy, int hx) {
 
 // the template for halo (hy, hx), or null
 Kernel pick_template(int hy, int hx) {
-  if (!STENCIL_TEMPLATES) return nullptr;
   switch (hy * 8 + hx) {
     case 1 * 8 + 1: return stencil_kernel<1, 1>;
     case 2 * 8 + 2: return stencil_kernel<2, 2>;
@@ -442,17 +407,6 @@ Kernel pick_template(int hy, int hx) {
 }
 
 }  // namespace
-
-// Dynamic shared memory of one block for halo (hy, hx), in bytes: the
-// ring (nslot slots of pitch ints) and two tables of win ints.  The
-// wrapper mirrors it (`kernel.py:stencil_smem_bytes`).
-extern "C" long long stencil_smem_bytes(int hy, int hx) {
-  const long long pitch = 4 * ((SW + 2LL * hx + 3 + 3) / 4);
-  const long long win = STEP + 2LL * hy;
-  const long long nslot = CARRY ? (DEPTH + 1LL) * STEP + 2LL * hy
-                                : (DEPTH + 1LL) * win;
-  return 4 * (nslot * pitch + 2 * win);
-}
 
 // taps: host int32 (n_taps, 3) of (dy, dx, w); copied into the launch's
 // parameter table.  Returns a cudaError_t (0 on success).
@@ -473,7 +427,7 @@ extern "C" int stencil_launch(const void* xp, void* out, int H, int W,
       int& cell = t.w[(taps[3 * k] + hy) * kx + taps[3 * k + 1] + hx];
       cell = (int)((uint32_t)cell + (uint32_t)taps[3 * k + 2]);
     }
-    t.n = SEPARABLE && factor(t.w, 2 * hy + 1, kx, t.dy, t.dx);
+    t.n = factor(t.w, 2 * hy + 1, kx, t.dy, t.dx);
   } else {
     fn = stencil_kernel<-1, -1>;
     t.n = n_taps;
@@ -515,8 +469,8 @@ extern "C" int stencil_launch(const void* xp, void* out, int H, int W,
     return (int)e;
   if (fit < 1) return (int)cudaErrorInvalidConfiguration;
   // one resident wave, each block at least a step's rows
-  long long blocks = (long long)sms * (fit < STENCIL_BLOCKS_PER_SM
-                                          ? fit : STENCIL_BLOCKS_PER_SM);
+  long long blocks = (long long)sms * (fit < BLOCKS_PER_SM ? fit
+                                                           : BLOCKS_PER_SM);
   if (blocks > (g.total + STEP - 1) / STEP) blocks = (g.total + STEP - 1) / STEP;
   void* args[] = {&g, &t};
   e = cudaLaunchKernel((const void*)fn, dim3((unsigned)blocks),

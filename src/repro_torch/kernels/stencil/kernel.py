@@ -917,10 +917,11 @@ _INT32 = (-(1 << 31), (1 << 31) - 1)
 
 
 def _stencil_smem_bytes(hy: int, hx: int) -> int:
-    """One block's dynamic shared memory in `csrc/stencil.cu` (its
-    `smem_bytes`): a ring of 3 steps of 32 rows plus 2hy rows, each slot
-    a 128-column strip's padded row in whole 16-byte chunks, and two
-    tables of the 32 + 2hy rows of a step's window."""
+    """One block's dynamic shared memory in `csrc/stencil.cu`, a copy of
+    its `smem_bytes` (the card tests hold both to one halo limit): a
+    ring of 3 steps of 32 rows plus 2hy rows, each slot a 128-column
+    strip's padded row in whole 16-byte chunks, and two tables of the
+    32 + 2hy rows of a step's window."""
     pitch = 4 * ((128 + 2 * hx + 6) // 4)
     return 4 * ((3 * 32 + 2 * hy) * pitch + 2 * (32 + 2 * hy))
 

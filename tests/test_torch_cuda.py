@@ -8,6 +8,8 @@ Needs a CUDA card: every test here skips without one.  Run on the card:
 No JAX here: the plain version, which the CPU tests hold equal to the
 JAX package, is the reference on the card.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -268,6 +270,36 @@ def test_stencil_kernel_on_an_input_off_16_bytes(cuda, offset):
         _same(_launched(K.LAUNCHES, "stencil",
                         lambda: K.fixedpoint_stencil(xq, *args)),
               K.fixedpoint_stencil_reference(xq, *args))
+
+
+# the largest halos one block's shared memory takes, each with the next
+# halo up, which it does not: the wrapper's `_stencil_smem_bytes` and the
+# launcher's `smem_bytes` in `stencil.cu` must draw the same line
+HALO_LIMITS = [((62, 62), (63, 63)), ((161, 1), (162, 1)),
+               ((0, 232), (0, 233))]
+
+
+@pytest.mark.parametrize("fits,too_big", HALO_LIMITS,
+                         ids=[f"{a}x{b}" for (a, b), _ in HALO_LIMITS])
+def test_stencil_halo_limit_is_the_launchers(cuda, fits, too_big):
+    from repro_torch.kernels import _build
+    hy, hx = fits
+    xq, _, qmin, qmax = _stencil_operands(cuda, 3, 5, hy, hx, "random", hy)
+    taps = [(hy, -hx, 3), (-hy, hx, -2), (0, 0, 7)]
+    args = (taps, fits, 2, qmin, qmax)
+    _same(_launched(K.LAUNCHES, "stencil",
+                    lambda: K.fixedpoint_stencil(xq, *args)),
+          K.fixedpoint_stencil_reference(xq, *args))
+    hy, hx = too_big
+    xq, _, qmin, qmax = _stencil_operands(cuda, 3, 5, hy, hx, "random", hy)
+    with pytest.raises(ValueError, match="too large"):
+        K.fixedpoint_stencil(xq, [(hy, hx, 1)], too_big, 2, qmin, qmax)
+    out = torch.empty((3, 5), dtype=torch.int32, device=cuda)
+    table = (ctypes.c_int32 * 3)(hy, hx, 1)
+    rc = _build.load("stencil").stencil_launch(
+        xq.data_ptr(), out.data_ptr(), 3, 5, table, 1, hy, hx, 2, qmin, qmax,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc != 0, "the launcher took a halo the wrapper refuses"
 
 
 # (M, K, N): ragged M, N and K across several 128 x 256 tiles; a K that

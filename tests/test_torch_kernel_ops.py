@@ -169,7 +169,7 @@ def _image(dtype: str, rng) -> np.ndarray:
 
 IMAGE_DTYPES = ["uint8", "int8", "int16", "uint16", "int32", "uint32",
                 "int64", "bool", "float16", "bfloat16", "float32",
-                "float64"]
+                "float64", "uint64"]
 
 
 @pytest.mark.parametrize("beta", [0, 2])

@@ -279,7 +279,184 @@ def stencil_extras(dev, card, flush, stencils, frame, t_in, t_out,
           flush=True)
 
 
-def kernel_library(dev, card):
+# builds of qdq.cu with one part of the design taken out (the split),
+# timed in turns with the shipped kernel (`--qdq-split`)
+QDQ_SPLIT = {"two-pass read": ["-DQDQ_TWO_PASS=1"],
+             "x * rcp(s), not exact": ["-DQDQ_RCP_QUOTIENT=1"],
+             "16 lanes a row": ["-DQDQ_MAX_LANES=16"]}
+
+
+def build_qdq_variants(variants: dict) -> dict:
+    """Compile each {name: (source, extra nvcc flags)} with the port's
+    flags, one nvcc each, all at once, into `build/kernels/variants/`;
+    returns {name: block_quantize_launch bound through ctypes}."""
+    import ctypes
+    import hashlib
+    from repro_torch.kernels import _build
+    out = _build.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, (src, flags) in variants.items():
+        h = hashlib.sha256(Path(src).read_bytes() + " ".join(
+            _build.NVCC_FLAGS + flags).encode()).hexdigest()[:16]
+        lib = out / f"qdq-{h}.so"
+        procs[name] = (lib, None if lib.exists() else subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    fns = {}
+    for name, (lib, proc) in procs.items():
+        if proc is not None:
+            log = proc.communicate(timeout=600)[0]
+            assert proc.returncode == 0, f"qdq variant {name}: {log}"
+        fn = ctypes.CDLL(str(lib)).block_quantize_launch
+        fn.argtypes = _build.SIGNATURES["qdq"]["block_quantize_launch"]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def qdq_variant_call(fn, x):
+    """One launch of a variant's `block_quantize_launch` on x, with the
+    wrapper's allocations; returns (codes, scales)."""
+    import torch
+    from repro_torch.kernels.qdq import kernel as QD
+    nb, bs = x.shape
+    q = torch.empty((nb, bs), dtype=torch.int8, device=x.device)
+    s = torch.empty((nb, 1), dtype=torch.float32, device=x.device)
+    rc = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), nb, bs,
+            QD.DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, f"block_quantize variant: CUDA error {rc}"
+    return q, s
+
+
+def subnormal_probes(dev, card) -> None:
+    """Rows whose values or scales fall below FLT_MIN, in f32, bf16 and
+    f16, through block_quantize and block_dequantize (a subnormal scale
+    among the scales), and a 128^3 qmatmul_dequant whose products
+    (f32(acc) * 1e-20) * 1e-19 fall below FLT_MIN for small |acc|: each
+    kernel == its plain version (the CPU tests hold the plain versions
+    to the JAX package's compiled code, which flushes these values)."""
+    import torch
+    from repro_torch.kernels.qdq import kernel as QD
+    from repro_torch.kernels.qmatmul import kernel as QM
+    tiny = torch.finfo(torch.float32).tiny
+    g = torch.Generator(device=dev).manual_seed(19)
+    rows = torch.randn((9, QDQ_BLOCK), device=dev, generator=g)
+    for r, k in enumerate((1e-37, 1e-38, 1e-39)):
+        rows[r] *= k
+    rows[4] = torch.tensor([152.0, 0.9, -0.9, 0.5] * (QDQ_BLOCK // 4),
+                           device=dev) * tiny
+    rows[5, ::3] = 0.7 * tiny
+    rows[6] *= 1e-36 / rows[6].abs().max()
+    rows[7] *= 1e-5
+    rows[8] = torch.tensor([127.0, -3.0, 0.6, -0.6] * (QDQ_BLOCK // 4),
+                           device=dev) * tiny
+    flushed = {}
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        x = rows.to(dt)
+        q, s = QD.block_quantize(x)
+        same(f"block_quantize subnormal probe {dt}", (q, s),
+             QD.block_quantize_reference(x))
+        s_sub = s.clone()
+        s_sub[3] = -1e-39
+        same(f"block_dequantize subnormal scale {dt}",
+             (QD.block_dequantize(q, s_sub),),
+             (QD.block_dequantize_reference(q, s_sub),))
+        flushed[str(dt).split(".")[-1]] = int((s == 1.0).sum())
+    a = torch.randint(-128, 128, (128, 128), dtype=torch.int8, device=dev,
+                      generator=g)
+    b = torch.randint(-128, 128, (128, 128), dtype=torch.int8, device=dev,
+                      generator=g)
+    sa = torch.full((128, 1), 1e-20, device=dev)
+    sb = torch.full((1, 128), 1e-19, device=dev)
+    got = QM.qmatmul_dequant(a, b, sa, sb)
+    same("qmatmul_dequant subnormal products", (got,),
+         (QM.qmatmul_dequant_reference(a, b, sa, sb),))
+    print(f"subnormal probes ({card}): block_quantize and "
+          f"block_dequantize == plain version in f32, bf16 and f16 (rows "
+          f"with scale 1 by dtype: {flushed}); qmatmul_dequant 128^3 at "
+          f"sa 1e-20, sb 1e-19 == plain version, {int((got != 0).sum())} "
+          f"nonzero outputs of 16384", flush=True)
+
+
+def qdq_extras(dev, card, flush, w, rows, baseline=None,
+               split=False) -> None:
+    """Beside the block_quantize rows: f32, bf16 and f16 timed three ways
+    (the L2 flushed by writing and by reading, and back to back in a
+    CUDA graph over 4 copies of the input), beside a device-to-device
+    copy of the same bytes (the copy yardstick), and, where asked, in
+    turns with the kernel built from `baseline` (another qdq.cu) and the
+    split builds (`QDQ_SPLIT`).  Adds them to `rows`."""
+    import torch
+    from repro_torch.kernels.qdq import kernel as QD
+    variants = {}
+    if baseline:
+        variants["baseline"] = (Path(baseline), [])
+    if split:
+        src = ROOT / "src/repro_torch/kernels/qdq/csrc/qdq.cu"
+        variants.update({k: (src, f) for k, f in QDQ_SPLIT.items()})
+    t0 = time.perf_counter()
+    fns = build_qdq_variants(variants)
+    if fns:
+        print(f"qdq variants {sorted(fns)} built in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"qdq.cu ptxas ({card}): {ptxas_lines('qdq', 'quantize')}",
+          flush=True)
+    x32 = w.reshape(-1, QDQ_BLOCK)
+    nb, n = x32.shape[0], x32.numel()
+    three = {}
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16"),
+                    (torch.float16, "f16")):
+        x = x32.to(dt)
+        moved = x.element_size() * n + n + 4 * nb
+        src8 = torch.empty(moved // 2, dtype=torch.uint8, device=dev)
+        dst8 = torch.empty_like(src8)
+        want = QD.block_quantize_reference(x)
+        calls = {"kernel": lambda x=x: QD.block_quantize(x),
+                 "copy": lambda: dst8.copy_(src8)}
+        for name, fn in fns.items():
+            got = qdq_variant_call(fn, x)
+            eq = all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
+            print(f"block_quantize {tag} {name} == plain version: {eq}",
+                  flush=True)
+            if name == "baseline" or not name.startswith("x * rcp"):
+                assert eq, f"block_quantize {tag} {name} != plain version"
+            calls[name] = lambda fn=fn, x=x: qdq_variant_call(fn, x)
+        # in turns: two rounds of each, flushed by writing and by reading
+        res = {k: {"dirty": 0.0, "clean": 0.0} for k in calls}
+        for _ in range(2):
+            for k, fn in calls.items():
+                res[k]["dirty"] += cold_ms(fn, 25, flush) / 2
+                res[k]["clean"] += cold_ms(fn, 25, flush, clean=True) / 2
+        # back to back: 8 launches over 4 copies of the input (or of the
+        # copy's source), each more than the L2 holds together
+        xs = [x.clone() for _ in range(4)]
+        for k in calls:
+            if k == "copy":
+                srcs = [src8.clone() for _ in range(4)]
+                dsts = [torch.empty_like(src8) for _ in range(4)]
+                fns_k = [lambda a=a, b=b: b.copy_(a)
+                         for a, b in zip(srcs, dsts)] * 2
+            elif k == "kernel":
+                fns_k = [lambda x=x_: QD.block_quantize(x) for x_ in xs] * 2
+            else:
+                fns_k = [lambda x=x_, fn=fns[k]: qdq_variant_call(fn, x)
+                         for x_ in xs] * 2
+            res[k]["graph"] = graph_ms(fns_k, flush)
+            if k == "copy":
+                del srcs, dsts
+        del xs, src8, dst8
+        three[tag] = res
+        print(f"block_quantize {nb}x{QDQ_BLOCK} {tag} ({card}): ms with the "
+              f"L2 flushed by writing (dirty), by reading (clean) and back "
+              f"to back in a CUDA graph (graph), beside a copy_ of "
+              f"{moved // 2} B (the same {moved} B moved): "
+              f"{json.dumps(res)}", flush=True)
+    rows["block_quantize"]["three_ways"] = three
+
+
+def kernel_library(dev, card, qdq_baseline=None, qdq_split=False):
     """Phase 2b (see the module docstring).  Returns the result line's
     rows of the five library kernels."""
     import numpy as np
@@ -317,7 +494,8 @@ def kernel_library(dev, card):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
         rows[name].setdefault("cases", {})[label] = {
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "library_ms": lib_ms}
         return ms
 
     # stencil: one 1080p frame, Sobel / 12 u8.0 -> s9.4 (the case of
@@ -456,11 +634,14 @@ def kernel_library(dev, card):
     measure("block_quantize", qd_label, lambda: QD.block_quantize(x),
             lambda: QD.block_quantize_reference(x), 4 * n + n + 4 * nb,
             [(6 * n + nb, PEAK_OPS_PER_S)])
-    # per element: convert, multiply
+    # per element: convert, multiply; the library call is `q * s`, one
+    # PyTorch call with int8 -> f32 promotion (timed here only)
     measure("block_dequantize", qd_label,
             lambda: (QD.block_dequantize(q, s),),
             lambda: (QD.block_dequantize_reference(q, s),),
-            n + 4 * nb + 4 * n, [(2 * n, PEAK_OPS_PER_S)])
+            n + 4 * nb + 4 * n, [(2 * n, PEAK_OPS_PER_S)],
+            library=lambda: q * s)
+    assert torch.equal(q * s, QD.block_dequantize_reference(q, s))
     # the same weight in bf16 and f16: 2-byte loads, codes and scales as
     # for f32; dequantizing their codes writes f32, as for f32
     for dt, tag in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
@@ -473,7 +654,10 @@ def kernel_library(dev, card):
         measure("block_dequantize", f"{qd_label} codes of {tag}",
                 lambda: (QD.block_dequantize(qn, sn),),
                 lambda: (QD.block_dequantize_reference(qn, sn),),
-                n + 4 * nb + 4 * n, [(2 * n, PEAK_OPS_PER_S)])
+                n + 4 * nb + 4 * n, [(2 * n, PEAK_OPS_PER_S)],
+                library=lambda: qn * sn)
+    subnormal_probes(dev, card)
+    qdq_extras(dev, card, flush, w, rows, qdq_baseline, qdq_split)
     w16 = w.to(torch.bfloat16)
     frame_u8 = frame.astype(np.uint8)
     t_in2 = FixedPointType(10, 2, False)
@@ -815,7 +999,16 @@ def band_kernel_times(dev, card, params) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--qdq-baseline", metavar="PATH",
+                    help="another qdq.cu to build and time in turns with "
+                         "block_quantize")
+    ap.add_argument("--qdq-split", action="store_true",
+                    help="also time block_quantize built with one part of "
+                         "its design taken out (QDQ_SPLIT)")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -863,7 +1056,8 @@ def main() -> int:
     band = band_kernel_times(dev, card, params)
 
     # -- 2b. the kernel library ---------------------------------------------
-    library_rows = kernel_library(dev, card)
+    library_rows = kernel_library(dev, card, args.qdq_baseline,
+                                  args.qdq_split)
 
     # -- 3. serving: the main path ----------------------------------------
     n_frames = 16

@@ -19,8 +19,7 @@
 //     a constant as a product with the f32-rounded reciprocal, in the
 //     Pallas kernel and in every jitted caller (an ulp apart on some
 //     rows), so s = max * f32(1/127) here too;
-//   * the codes use a true IEEE division (`/` without fast math keeps
-//     `-prec-div=true`), never x * (1 / s);
+//   * the codes use a true IEEE division (`__fdiv_rn`), never x * (1 / s);
 //   * `rintf` rounds half to even, as `jnp.rint`;
 //   * a NaN quotient (a row whose scale is NaN or infinite) gives code
 //     0: XLA's float-to-int conversion sends NaN to 0 after the clip,
@@ -32,15 +31,35 @@
 //     The scale rule differs by type: bf16 divides, max / 127 rounded
 //     to bf16; f16 multiplies by f16(1/127), rounded to f16; the quotient
 //     x / s is rounded to the input type before `rintf`.  The scale is
-//     stored as f32 (exact).
+//     stored as f32 (exact);
+//   * subnormals: XLA's compiled code on the CPU reads a subnormal f32
+//     operand as 0 and flushes a subnormal f32 result to 0.  Here each
+//     value is flushed where it does (`ftz`; no floating-point mode is
+//     set and the build keeps `-ftz=false`): f32 and bf16 elements in
+//     the maximum and in the quotient, the f32 scale, and the bf16
+//     quotient max / 127 before it is rounded to bf16; the dequantize's
+//     scale.  f16 flushes nothing: no f16 value, scale or quotient is
+//     subnormal in f32.  A quotient x / s below FLT_MIN rounds to code 0
+//     either way, and f32(q) * s with a normal s is 0 or normal.
 //
-// Design.  block_quantize: one warp per row, 8 rows a block, one
-// instantiation per input type.  The warp reads the row once for its
-// absmax (a shuffle reduction), then again, from L1/L2, for the codes.
-// Where BS % 4 == 0 each lane moves 4 elements of x (16 bytes of f32,
-// 8 of bf16 or f16) and 4 codes at a time.  block_dequantize: one
-// thread per 4 consecutive elements (or per element where BS % 4 != 0),
-// reading its row's scale.
+// Design of block_quantize, one instantiation per input type:
+//   * the register path, where BS % 8 == 0, x is 16-byte and q 8-byte
+//     aligned and a row fits in the registers of a warp (BS <= 32 x
+//     MAX_CHUNKS x 8): each lane holds chunks of 8 consecutive elements
+//     (one 16-byte load of bf16 or f16, two of f32), L lanes a row
+//     (the least power of two that gives each lane a chunk, up to 32,
+//     and then up to MAX_CHUNKS chunks a lane), so 32 / L rows a warp.
+//     A row is read from memory once: its maximum is reduced in
+//     registers with `__shfl_xor_sync` over the row's L lanes, and its
+//     codes come from the same registers, 8 a lane in one 8-byte store;
+//   * the loop path, where the row is longer: one warp a row, chunks of
+//     8 with 16-byte loads, once for the maximum and once more for the
+//     codes (that second read comes from L2 at the sizes users run:
+//     a row of 8192 f32 is 32 KB);
+//   * the general path (BS % 8 != 0, or x or q misaligned): one warp a
+//     row, one element a lane at a time, two reads.
+// block_dequantize: one thread per 4 consecutive elements (or per
+// element where BS % 4 != 0), reading its row's scale.
 //
 // Bound, at one qwen3-4b up-projection weight (2560 x 9728 f32 in
 // blocks of 256, so NB = 97,280): quantize reads 99.6 MB and writes
@@ -48,52 +67,68 @@
 // 0.0373 ms; dequantize moves the same bytes the other way.  The same
 // weight in bf16 reads 49.8 MB: 75.1 MB, 0.0224 ms.  A few operations a
 // byte: the bytes bound both.
-//
-// Left for later: the second read of each row in block_quantize comes
-// from cache rather than registers; the two passes of `fake_quant`
-// could be one kernel that never writes the codes.
 
+#include <cfloat>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+// Build-time switches that take one part of the design out, for timing
+// only (the split); 0 everywhere in the shipped build.
+#ifndef QDQ_TWO_PASS        // the register path reads each chunk twice
+#define QDQ_TWO_PASS 0
+#endif
+#ifndef QDQ_RCP_QUOTIENT    // x * rcp(s) instead of x / s: not exact
+#define QDQ_RCP_QUOTIENT 0
+#endif
+#ifndef QDQ_MAX_LANES       // fewer lanes a row: more rows a warp
+#define QDQ_MAX_LANES 32
+#endif
+
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int ROWS = THREADS / 32;    // block_quantize: one warp per row
+constexpr int WARPS = THREADS / 32;
+constexpr int CHUNK = 8;          // elements a lane holds together
+constexpr int MAX_CHUNKS = 4;     // chunks a lane holds in registers
 
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a > b || a != a) ? a : b;   // NaN in either operand wins
 }
 
+// a value below FLT_MIN in magnitude becomes a zero of its sign
+__device__ __forceinline__ float ftz(float v) {
+  return fabsf(v) < FLT_MIN ? copysignf(0.f, v) : v;
+}
+
 // Per input type: widening to f32, rounding an f32 result back to the
-// type (the identity for f32), 4 elements as one aligned load, and the
-// scale of a row maximum.
+// type (the identity for f32), whether f32 subnormals can occur, and
+// the scale of a row maximum.
 template <class T> struct Elem;
 
 template <> struct Elem<float> {
-  using Vec4 = float4;
+  static constexpr bool FLUSH = true;
   static __device__ float widen(float v) { return v; }
   static __device__ float narrow(float v) { return v; }
   static __device__ float scale(float m) {      // max * f32(1/127)
-    return __fmul_rn(m, 1.0f / 127.0f);
+    return ftz(__fmul_rn(m, 1.0f / 127.0f));
   }
 };
 
 template <> struct Elem<__nv_bfloat16> {
-  using Vec4 = uint2;
+  static constexpr bool FLUSH = true;
   static __device__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
   static __device__ float narrow(float v) {
     return __bfloat162float(__float2bfloat16_rn(v));
   }
   static __device__ float scale(float m) {      // bf16(max / 127)
-    return narrow(__fdiv_rn(m, 127.0f));
+    return narrow(ftz(__fdiv_rn(m, 127.0f)));
   }
 };
 
 template <> struct Elem<__half> {
-  using Vec4 = uint2;
+  static constexpr bool FLUSH = false;
   static __device__ float widen(__half v) { return __half2float(v); }
   static __device__ float narrow(float v) {
     return __half2float(__float2half_rn(v));
@@ -103,76 +138,197 @@ template <> struct Elem<__half> {
   }
 };
 
-// the 4 elements of one aligned load, widened
+// an element as the reference's compiled code reads it
 template <class T>
-__device__ __forceinline__ float4 load4(const T* p) {
-  const typename Elem<T>::Vec4 v = *(const typename Elem<T>::Vec4*)p;
-  const T* e = (const T*)&v;
-  return make_float4(Elem<T>::widen(e[0]), Elem<T>::widen(e[1]),
-                     Elem<T>::widen(e[2]), Elem<T>::widen(e[3]));
+__device__ __forceinline__ float read(float v) {
+  return Elem<T>::FLUSH ? ftz(v) : v;
 }
 
 template <class T>
 __device__ __forceinline__ int8_t code(float x, float s) {
+#if QDQ_RCP_QUOTIENT
+  const float r = rintf(Elem<T>::narrow(__fmul_rn(x, __frcp_rn(s))));
+#else
   const float r = rintf(Elem<T>::narrow(__fdiv_rn(x, s)));
+#endif
   if (r != r) return 0;
   return (int8_t)(int)fminf(fmaxf(r, -128.f), 127.f);
 }
 
-template <class T, bool V4>
+// the 8 elements at p (16-byte aligned) as 16-byte loads, read as the
+// reference reads them
+template <class T>
+__device__ __forceinline__ void load_chunk(const T* p, float (&v)[CHUNK]) {
+  constexpr int WORDS = CHUNK * sizeof(T) / 16;
+  uint4 w[WORDS];
+#pragma unroll
+  for (int i = 0; i < WORDS; ++i) w[i] = ((const uint4*)p)[i];
+  const T* e = (const T*)w;
+#pragma unroll
+  for (int k = 0; k < CHUNK; ++k) v[k] = read<T>(Elem<T>::widen(e[k]));
+}
+
+// the 8 codes of a chunk as one 8-byte store at p (8-byte aligned)
+template <class T>
+__device__ __forceinline__ void store_codes(int8_t* p, const float (&v)[CHUNK],
+                                            float s) {
+  union { int8_t c[CHUNK]; uint2 u; } o;
+#pragma unroll
+  for (int k = 0; k < CHUNK; ++k) o.c[k] = code<T>(v[k], s);
+  *(uint2*)p = o.u;
+}
+
+template <class T>
+__device__ __forceinline__ float chunk_max(float m, const float (&v)[CHUNK]) {
+#pragma unroll
+  for (int k = 0; k < CHUNK; ++k) m = nan_max(m, fabsf(v[k]));
+  return m;
+}
+
+template <class T>
+__device__ __forceinline__ float row_scale(float m) {
+  const float sc = Elem<T>::scale(m);
+  return sc == 0.f ? 1.f : sc;
+}
+
+// The register path: L = 1 << lanes_log2 lanes a row, NCH chunks a lane.
+template <class T, int NCH>
 __global__ void __launch_bounds__(THREADS)
-block_quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
-                      float* __restrict__ s, long long NB, int BS) {
-  const long long row = (long long)blockIdx.x * ROWS + (threadIdx.x >> 5);
+quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
+                     float* __restrict__ s, long long NB, int BS,
+                     int lanes_log2) {
+  const int L = 1 << lanes_log2;
+  const int lane = threadIdx.x & 31, sub = lane & (L - 1);
+  const long long row =
+      ((long long)blockIdx.x * WARPS + (threadIdx.x >> 5)) * (32 / L) +
+      (lane >> lanes_log2);
+  const bool live = row < NB;
+  const int nch = BS / CHUNK;
+  const T* xr = x + row * BS;
+  float v[NCH][CHUNK];
+  float m = 0.f;
+#pragma unroll
+  for (int j = 0; j < NCH; ++j) {
+    const int c = j * L + sub;
+    if (live && c < nch) {
+      load_chunk(xr + CHUNK * c, v[j]);
+      m = chunk_max<T>(m, v[j]);
+    }
+  }
+  // every lane of the warp takes part: the rows' groups are aligned
+  for (int off = L >> 1; off > 0; off >>= 1)
+    m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if (!live) return;
+  const float sc = row_scale<T>(m);
+  if (sub == 0) s[row] = sc;
+  int8_t* qr = q + row * BS;
+#pragma unroll
+  for (int j = 0; j < NCH; ++j) {
+    const int c = j * L + sub;
+    if (c < nch) {
+#if QDQ_TWO_PASS
+      load_chunk(xr + CHUNK * c, v[j]);
+#endif
+      store_codes<T>(qr + CHUNK * c, v[j], sc);
+    }
+  }
+}
+
+// The loop path: one warp a row of any length BS % 8 == 0, chunks of 8.
+template <class T>
+__global__ void __launch_bounds__(THREADS)
+quantize_long_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
+                     float* __restrict__ s, long long NB, int BS) {
+  const long long row = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= NB) return;
+  const int nch = BS / CHUNK;
+  const T* xr = x + row * BS;
+  int8_t* qr = q + row * BS;
+  float m = 0.f;
+  int c = lane;
+  for (; c + 32 < nch; c += 64) {           // two chunks in flight a lane
+    float v[CHUNK], u[CHUNK];
+    load_chunk(xr + CHUNK * c, v);
+    load_chunk(xr + CHUNK * (c + 32), u);
+    m = chunk_max<T>(chunk_max<T>(m, v), u);
+  }
+  if (c < nch) {
+    float v[CHUNK];
+    load_chunk(xr + CHUNK * c, v);
+    m = chunk_max<T>(m, v);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
+  const float sc = row_scale<T>(m);
+  if (lane == 0) s[row] = sc;
+  for (c = lane; c < nch; c += 32) {
+    float v[CHUNK];
+    load_chunk(xr + CHUNK * c, v);
+    store_codes<T>(qr + CHUNK * c, v, sc);
+  }
+}
+
+// The general path: one warp a row, one element a lane at a time.
+template <class T>
+__global__ void __launch_bounds__(THREADS)
+quantize_general_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
+                        float* __restrict__ s, long long NB, int BS) {
+  const long long row = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= NB) return;
   const T* xr = x + row * BS;
   int8_t* qr = q + row * BS;
   float m = 0.f;
-  if (V4) {
-    for (int c = lane; c < BS / 4; c += 32) {
-      const float4 v = load4(xr + 4 * c);
-      m = nan_max(nan_max(m, fabsf(v.x)), fabsf(v.y));
-      m = nan_max(nan_max(m, fabsf(v.z)), fabsf(v.w));
-    }
-  } else {
-    for (int c = lane; c < BS; c += 32)
-      m = nan_max(m, fabsf(Elem<T>::widen(xr[c])));
-  }
+  for (int c = lane; c < BS; c += 32)
+    m = nan_max(m, fabsf(read<T>(Elem<T>::widen(xr[c]))));
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
-  float sc = Elem<T>::scale(m);
-  if (sc == 0.f) sc = 1.f;
+  const float sc = row_scale<T>(m);
   if (lane == 0) s[row] = sc;
-  if (V4) {
-    for (int c = lane; c < BS / 4; c += 32) {
-      const float4 v = load4(xr + 4 * c);
-      char4 o;
-      o.x = code<T>(v.x, sc);
-      o.y = code<T>(v.y, sc);
-      o.z = code<T>(v.z, sc);
-      o.w = code<T>(v.w, sc);
-      ((char4*)qr)[c] = o;
-    }
-  } else {
-    for (int c = lane; c < BS; c += 32)
-      qr[c] = code<T>(Elem<T>::widen(xr[c]), sc);
-  }
+  for (int c = lane; c < BS; c += 32)
+    qr[c] = code<T>(read<T>(Elem<T>::widen(xr[c])), sc);
+}
+
+template <class T, int NCH>
+void launch_rows(const T* x, int8_t* q, float* s, long long NB, int BS,
+                 int lanes_log2, cudaStream_t st) {
+  const long long rows = (long long)WARPS * (32 >> lanes_log2);
+  quantize_rows_kernel<T, NCH><<<(unsigned)((NB + rows - 1) / rows),
+                                 THREADS, 0, st>>>(x, q, s, NB, BS,
+                                                   lanes_log2);
 }
 
 template <class T>
-int quantize(const void* x, void* q, void* s, long long NB, int BS,
+int quantize(const void* xv, void* qv, void* sv, long long NB, int BS,
              cudaStream_t st) {
-  const bool v4 = BS % 4 == 0 && (uintptr_t)x % (4 * sizeof(T)) == 0 &&
-                  (uintptr_t)q % 4 == 0;
-  const unsigned blocks = (unsigned)((NB + ROWS - 1) / ROWS);
-  if (v4)
-    block_quantize_kernel<T, true><<<blocks, THREADS, 0, st>>>(
-        (const T*)x, (int8_t*)q, (float*)s, NB, BS);
-  else
-    block_quantize_kernel<T, false><<<blocks, THREADS, 0, st>>>(
-        (const T*)x, (int8_t*)q, (float*)s, NB, BS);
+  const T* x = (const T*)xv;
+  int8_t* q = (int8_t*)qv;
+  float* s = (float*)sv;
+  const unsigned warp_blocks = (unsigned)((NB + WARPS - 1) / WARPS);
+  const bool chunks = BS % CHUNK == 0 && (uintptr_t)x % 16 == 0 &&
+                      (uintptr_t)q % 8 == 0;
+  const int nch = BS / CHUNK;
+  if (chunks && nch <= QDQ_MAX_LANES * MAX_CHUNKS) {
+    // a chunk a lane where the row has up to 32 chunks, else 32 lanes
+    int lanes_log2 = 0;
+    while ((1 << lanes_log2) < QDQ_MAX_LANES && (1 << lanes_log2) < nch)
+      ++lanes_log2;
+    const int per = (nch + (1 << lanes_log2) - 1) >> lanes_log2;
+    switch (per) {
+      case 1: launch_rows<T, 1>(x, q, s, NB, BS, lanes_log2, st); break;
+      case 2: launch_rows<T, 2>(x, q, s, NB, BS, lanes_log2, st); break;
+      case 3: launch_rows<T, 3>(x, q, s, NB, BS, lanes_log2, st); break;
+      default: launch_rows<T, 4>(x, q, s, NB, BS, lanes_log2, st); break;
+    }
+  } else if (chunks) {
+    quantize_long_kernel<T><<<warp_blocks, THREADS, 0, st>>>(x, q, s, NB, BS);
+  } else {
+    quantize_general_kernel<T><<<warp_blocks, THREADS, 0, st>>>(x, q, s, NB,
+                                                               BS);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -185,13 +341,13 @@ block_dequantize_kernel(const int8_t* __restrict__ q,
   if (V4) {
     if (4 * i >= n) return;
     const char4 c = ((const char4*)q)[i];
-    const float sc = s[4 * i / BS];    // BS % 4 == 0: one row for all 4
+    const float sc = ftz(s[4 * i / BS]);  // BS % 4 == 0: one row for all 4
     ((float4*)y)[i] = make_float4(
         __fmul_rn((float)c.x, sc), __fmul_rn((float)c.y, sc),
         __fmul_rn((float)c.z, sc), __fmul_rn((float)c.w, sc));
   } else {
     if (i >= n) return;
-    y[i] = __fmul_rn((float)q[i], s[i / BS]);
+    y[i] = __fmul_rn((float)q[i], ftz(s[i / BS]));
   }
 }
 

@@ -4,7 +4,10 @@ Replaces the TPU kernels `repro/kernels/qdq/kernel.py:block_quantize`
 and `block_dequantize` with one CUDA source, `csrc/qdq.cu`.
 `block_quantize` takes f32, bf16 or f16 and computes in that dtype, as
 the reference's compiled kernel does (`absmax_scale`, `quantize_codes`);
-the scales come out f32 either way.  The plain
+the scales come out f32 either way.  XLA runs its compiled code on the
+CPU with subnormal f32 inputs read as zero and subnormal f32 results
+flushed to zero; the port flushes the same values, one by one
+(`flush_subnormal`), and sets no floating-point mode.  The plain
 versions sit beside the wrappers: the wrappers run them for CPU tensors,
 and on CUDA tensors launch the kernel or raise, counting launches in
 `LAUNCHES`.  The reference's `rows_per_tile` has no meaning for the
@@ -25,6 +28,19 @@ QMAX = 127
 
 # the dtypes `block_quantize` takes, by the code its CUDA entry point takes
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+# the least normal f32 (and bf16) magnitude, 2^-126
+FLT_MIN = float(torch.finfo(torch.float32).tiny)
+
+
+def flush_subnormal(t: torch.Tensor) -> torch.Tensor:
+    """t with every value below `FLT_MIN` in magnitude made a zero of its
+    sign, as XLA's compiled code on the CPU reads a subnormal f32 operand
+    and writes a subnormal f32 result.  Per value: no floating-point
+    mode is set.  f16 holds no value that is subnormal in f32, so it
+    passes unchanged."""
+    return torch.where(t.abs() < FLT_MIN, t * 0.0, t)
 
 
 def inv_qmax(qmax: int = QMAX) -> float:
@@ -51,15 +67,28 @@ def absmax_scale(x: torch.Tensor, dim: int, qmax: int = QMAX
     Each narrow operation is one f32 operation rounded to the narrow
     type, which is the correctly rounded narrow result (f32 carries more
     than twice the narrow significand and two bits).  The maximum
-    propagates NaN, as `jnp.max` does."""
-    m = torch.amax(torch.abs(x), dim=dim, keepdim=True)
+    propagates NaN, as `jnp.max` does.
+
+    Subnormals, as XLA's compiled code on the CPU treats them: an f32 or
+    bf16 input below `FLT_MIN` counts as 0 in the maximum, and an f32
+    scale below it becomes 0, so 1.  For bf16 the f32 quotient is
+    flushed before it is rounded to bf16, as the compiled code does (an
+    f32 multiply, then a convert); at qmax = 127 no bf16 maximum tells
+    that from flushing after the rounding (126.5 * FLT_MIN / 127 lies
+    below the midpoint under FLT_MIN).  f16 flushes nothing: every f16
+    value and every f16 scale is normal in f32, and the f32 -> f16
+    rounding does not flush."""
+    if x.dtype == torch.float16:
+        m = torch.amax(torch.abs(x), dim=dim, keepdim=True)
+    else:
+        m = torch.amax(flush_subnormal(torch.abs(x)), dim=dim, keepdim=True)
     if x.dtype == torch.float32:
-        s = m * inv_qmax(qmax)
+        s = flush_subnormal(m * inv_qmax(qmax))
     elif x.dtype == torch.bfloat16:
         # a tensor divisor: torch turns a division by a Python number on
         # the card into a product with its reciprocal
-        s = (m.float() / torch.full_like(m, qmax, dtype=torch.float32)
-             ).to(torch.bfloat16)
+        s = flush_subnormal(m.float() / torch.full_like(
+            m, qmax, dtype=torch.float32)).to(torch.bfloat16)
     elif x.dtype == torch.float16:
         s = (m.float() * float(np.float16(1 / qmax))).to(torch.float16)
     else:
@@ -80,7 +109,12 @@ def quantize_codes(x: torch.Tensor, s: torch.Tensor, qmax: int = QMAX
                    ) -> torch.Tensor:
     """int8 codes of ``x / s`` in x's dtype: a true division (never a
     product with 1 / s), rounded to x's dtype before `rint` where that
-    is bf16 or f16, as the reference's compiled kernel rounds it."""
+    is bf16 or f16, as the reference's compiled kernel rounds it.  An
+    f32 or bf16 x below `FLT_MIN` divides as 0, as in the compiled
+    code; a subnormal quotient needs no flush, as it rounds to code 0
+    either way."""
+    if x.dtype != torch.float16:
+        x = flush_subnormal(x)
     q = x / s if x.dtype == torch.float32 else (x.float() / s.float()).to(
         x.dtype)
     return int8_codes(q, qmax)
@@ -97,8 +131,10 @@ def block_quantize_reference(x: torch.Tensor
 
 def block_dequantize_reference(q: torch.Tensor, s: torch.Tensor
                                ) -> torch.Tensor:
-    """Plain version: ``f32(q) * s`` per row."""
-    return q.to(torch.float32) * s
+    """Plain version: ``f32(q) * s`` per row, with a subnormal s read as
+    0, as the reference's compiled code reads it; the product of a
+    normal s and a nonzero code is normal, so it needs no flush."""
+    return q.to(torch.float32) * flush_subnormal(s)
 
 
 def _launch(name: str, operands, outs, *scalars) -> None:

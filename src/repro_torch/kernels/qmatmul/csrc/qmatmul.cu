@@ -18,6 +18,9 @@
 // tests stay below).  The epilogue converts with round-to-nearest-even
 // (`__int2float_rn`, as XLA's and torch's int32 -> f32 conversion) and
 // multiplies with `__fmul_rn` in the reference's order, a-scale first.
+// XLA's compiled code on the CPU reads a subnormal f32 scale as 0 and
+// flushes each subnormal product to 0; the epilogue flushes the same
+// values one by one (`ftz`; no floating-point mode, no `-ftz=true`).
 //
 // Bound, at M = 4096, K = 2560, N = 9728 (qwen3-4b's MLP up-projection
 // over 4096 tokens): 2 M N K = 204.0 G int8 operations at the data
@@ -70,6 +73,7 @@
 // warpgroups run between tiles instead of multiplying; and 1,216 tiles
 // on 132 SMs, 9.2 rounds run as 10.
 
+#include <cfloat>
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -267,10 +271,16 @@ __device__ __forceinline__ void tile_of(int t, int tiles_m, int tiles_n,
   tn = r / rows;
 }
 
-// (f32(acc) * sa[m]) * sb[n], rounded as the reference rounds.
+// a value below FLT_MIN in magnitude becomes a zero of its sign
+__device__ __forceinline__ float ftz(float v) {
+  return fabsf(v) < FLT_MIN ? copysignf(0.f, v) : v;
+}
+
+// (f32(acc) * sa[m]) * sb[n], rounded and flushed as the reference's
+// compiled code rounds and flushes it; the scales come in flushed.
 __device__ __forceinline__ float dequant(int32_t acc, float s_row,
                                          float s_col) {
-  return __fmul_rn(__fmul_rn(__int2float_rn(acc), s_row), s_col);
+  return ftz(__fmul_rn(ftz(__fmul_rn(__int2float_rn(acc), s_row)), s_col));
 }
 
 template <bool DEQUANT>
@@ -379,9 +389,9 @@ qmm_kernel(const __grid_constant__ CUtensorMap tm_a,
       float s_row[2] = {0.f, 0.f}, s_mine = 0.f;
       if (DEQUANT) {
         const int mine = tn * BN + 128 * c + tid;
-        if (r0 < M) s_row[0] = sa[r0];
-        if (r0 + 8 < M) s_row[1] = sa[r0 + 8];
-        if (mine < N) s_mine = sb[mine];
+        if (r0 < M) s_row[0] = ftz(sa[r0]);
+        if (r0 + 8 < M) s_row[1] = ftz(sa[r0 + 8]);
+        if (mine < N) s_mine = ftz(sb[mine]);
       }
       int prev = 0;
       for (int ks = 0; ks < nk; ++ks) {

@@ -19,6 +19,8 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels.qdq.kernel import flush_subnormal
+
 LAUNCHES: Dict[str, int] = {"qmatmul_i32": 0, "qmatmul_dequant": 0}
 _LAUNCH_LOCK = threading.Lock()
 
@@ -40,9 +42,12 @@ def qmatmul_dequant_reference(a_q: torch.Tensor, b_q: torch.Tensor,
                               a_scale: torch.Tensor, b_scale: torch.Tensor
                               ) -> torch.Tensor:
     """Plain version of the fused epilogue: ``(f32(acc) * sa) * sb``, in
-    the reference's order; a_scale (M, 1), b_scale (1, N) f32."""
-    acc = qmatmul_i32_reference(a_q, b_q)
-    return acc.to(torch.float32) * a_scale * b_scale
+    the reference's order; a_scale (M, 1), b_scale (1, N) f32.  As the
+    reference's compiled code on the CPU, a subnormal scale reads as 0
+    and each subnormal product becomes 0 (`qdq.kernel.flush_subnormal`)."""
+    acc = qmatmul_i32_reference(a_q, b_q).to(torch.float32)
+    return flush_subnormal(flush_subnormal(acc * flush_subnormal(a_scale))
+                           * flush_subnormal(b_scale))
 
 
 def _check(name: str, a_q: torch.Tensor, b_q: torch.Tensor,

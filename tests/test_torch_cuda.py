@@ -368,6 +368,29 @@ def test_qmatmul_kernels_at_the_largest_accumulators(cuda):
 PACKS = [(53, 70), (520, 1000), (264, 4160), (300, 64), (1, 1)]
 
 
+@pytest.mark.parametrize("M,K,N", [(128, 128, 128), (300, 1000, 520),
+                                   (1100, 520, 4098)])
+def test_qmatmul_dequant_flushes_subnormal_products(cuda, M, K, N):
+    """The epilogue where (f32(acc) * sa) * sb is subnormal: sa = 1e-20
+    and sb = 1e-19 (products below FLT_MIN for small |acc|), subnormal
+    row and column scales of both signs (read as 0) and a row whose
+    first product is below FLT_MIN; both epilogues (TMA and direct
+    stores, N % 4 != 0)."""
+    a, b, _, _ = _qmm_operands(cuda, M, K, N, M + N)
+    sa = torch.full((M, 1), 1e-20, device=cuda)
+    sb = torch.full((1, N), 1e-19, device=cuda)
+    sa[1], sa[2], sb[0, 3], sb[0, 4] = 1e-39, -2e-39, 5e-40, -1e-38
+    sa[5] = 1e-37
+    sb[0, 6] = 1e30
+    got = _launched(QM.LAUNCHES, "qmatmul_dequant",
+                    lambda: QM.qmatmul_dequant(a, b, sa, sb))
+    want = QM.qmatmul_dequant_reference(a, b, sa, sb)
+    _same(got, want)
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
+    tiny = torch.finfo(torch.float32).tiny
+    assert not ((got.abs() < tiny) & (got != 0)).any()
+
+
 @pytest.mark.parametrize("K,N", PACKS, ids=[f"{k}x{n}" for k, n in PACKS])
 def test_pack_pre_pass_alone(cuda, K, N):
     """bT == b.t() zero-padded to K16: tells a wrong transpose from a
@@ -380,17 +403,41 @@ def test_pack_pre_pass_alone(cuda, K, N):
     _same(bt, QM.pack_b_reference(b))
 
 
+# (NB, BS, offset): the register path with a chunk of 8 a lane at 256
+# (32 lanes a row), 64 (8 lanes, 4 rows a warp), 40 (5 of 8 lanes), 8 (1
+# lane, 32 rows a warp), 520 (3 chunks a lane) and 1024 (4 chunks a
+# lane); the loop path at 8192 and 4104 (an odd number of chunks); the
+# general path at BS % 8 != 0 (33, 1, 6) and with x 1, 3 or 7 elements
+# into a larger buffer (2, 6, 14 bytes off 16 in bf16 and f16; 4, 12,
+# 28 in f32)
+BLOCKS = [(1000, 256, 0), (37, 33, 0), (5, 1, 0), (40, 6, 0), (300, 64, 0),
+          (33, 40, 0), (70, 8, 0), (20, 520, 0), (50, 1024, 0),
+          (9, 8192, 0), (12, 4104, 0), (100, 256, 1), (100, 256, 3),
+          (30, 64, 7)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16], ids=str)
-@pytest.mark.parametrize("NB,BS", [(1000, 256), (37, 33), (5, 1), (40, 6)])
-def test_block_kernels_equal_plain_versions(cuda, NB, BS, dtype):
-    """Each instantiation of block_quantize, with BS % 4 != 0 (37 x 33,
-    40 x 6) and rows holding NaN or inf."""
+@pytest.mark.parametrize("NB,BS,offset", BLOCKS)
+def test_block_kernels_equal_plain_versions(cuda, NB, BS, offset, dtype):
+    """Each instantiation and path of block_quantize, on rows holding
+    NaN or inf and, from NB = 9 up, rows of subnormals and of tiny
+    normals (the flush rules)."""
     g = torch.Generator(device=cuda).manual_seed(NB)
-    x = (torch.randn((NB, BS), device=cuda, generator=g)
-         * torch.rand((NB, 1), device=cuda, generator=g) * 100).to(dtype)
+    x = (torch.randn((offset + NB * BS,), device=cuda, generator=g)
+         * 100).to(dtype)[offset:].view(NB, BS)
+    x.mul_(torch.rand((NB, 1), device=cuda, generator=g).to(dtype))
     x[0] = 0.0
     x[1, 0], x[2, -1] = float("nan"), float("inf")
+    if NB >= 9:
+        tiny = torch.finfo(torch.float32).tiny
+        for r, k in ((3, 1e-37), (4, 1e-38), (5, 1e-39)):
+            x[r] = (torch.randn(BS, device=cuda, generator=g) * k).to(dtype)
+        x[6] = torch.tensor([152.0, 0.9, -0.9, 0.5] * BS, device=cuda
+                            )[:BS].mul(tiny).to(dtype)
+        x[7, ::2] = 0.7 * tiny
+        x[8] = x[8].float().mul(1e-5).to(dtype)
+    assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == (offset > 0)
     q, s = _launched(QD.LAUNCHES, "block_quantize",
                      lambda: QD.block_quantize(x))
     wq, ws = QD.block_quantize_reference(x)

@@ -454,6 +454,151 @@ def test_compress_decompress_round_trip_equals_the_reference():
 
 
 # ---------------------------------------------------------------------------
+# subnormals: XLA's compiled code on the CPU reads a subnormal f32 operand
+# as zero and flushes a subnormal f32 result; the port flushes the same
+# values one by one (f16 never holds an f32 subnormal)
+# ---------------------------------------------------------------------------
+
+DTYPES = [torch.float32] + NARROW
+TINY = np.float32(np.finfo(np.float32).tiny)
+
+
+def _tiny_rows() -> np.ndarray:
+    """(9, 256) f32 rows: normals scaled by 1e-37, 1e-38 and 1e-39 (an
+    f32 scale below FLT_MIN; all-subnormal rows); a normal row; a row of
+    maximum 152 FLT_MIN, whose scale is about 1.2 FLT_MIN, holding
+    subnormals of 0.9 FLT_MIN, which divide to about 0.75 unless read
+    as 0; a normal row holding subnormals; a row of maximum 1e-36; a row
+    scaled by 1e-5, whose f16 scale is f16-subnormal (7.9e-8); and a row
+    of maximum 127 FLT_MIN, whose f32 scale is the least normal one."""
+    rng = np.random.default_rng(19)
+    x = rng.normal(size=(9, 256)).astype(np.float32)
+    for r, k in enumerate((1e-37, 1e-38, 1e-39)):
+        x[r] *= np.float32(k)
+    x[4] = np.resize(np.float32([152, 0.9, -0.9, 0.5, -0.25]), 256) * TINY
+    x[5, ::3] = np.float32(0.7) * TINY
+    x[6] *= np.float32(1e-36) / np.abs(x[6]).max()
+    x[7] *= np.float32(1e-5)
+    x[8] = np.resize(np.float32([127, -3, 0.6, -0.6]), 256) * TINY
+    return x
+
+
+def _check_blocks(x: torch.Tensor, x_np) -> tuple:
+    wq, ws = rqdq.block_quantize(jnp.asarray(x_np), interpret=True)
+    q, s = qdq.block_quantize(x)
+    _equal(q, wq)
+    _equal(s, ws)
+    _equal(qdq.block_dequantize(q, s),
+           rqdq.block_dequantize(wq, ws, interpret=True))
+    return q, s
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_block_kernels_flush_subnormals_as_the_pallas_kernels(dtype):
+    """Rows at 1e-37, 1e-38 and 1e-39 get scale 1 and zero codes in f32
+    and bf16, as in the Pallas kernel (an unflushed port gave scales of
+    2.4e-39 to 3.1e-41 and codes up to 127); subnormals beside a tiny
+    normal maximum quantize to 0; f16, which holds no f32 subnormal,
+    keeps its f16-subnormal scale."""
+    x, x_np = _narrow(_tiny_rows(), dtype)
+    q, s = _check_blocks(x, x_np)
+    if dtype != torch.float16:
+        assert (s[:3] == 1.0).all() and not q[:3].any()
+        assert (s[6] == 1.0).all() and not q[6].any()
+        assert 0 < s[4, 0] < 2 * TINY and not q[4, 1:3].any()
+    else:
+        s7 = np.float32(s[7, 0])
+        assert 0 < s7 < np.finfo(np.float16).tiny
+    # the f32 scale of row 8 is the least normal one, and stays
+    if dtype == torch.float32:
+        assert s[8, 0] == TINY and q[8, :2].tolist() == [127, -3]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_block_dequantize_reads_a_subnormal_scale_as_zero(dtype):
+    """Scales below FLT_MIN, as `decompress` may be handed them, read as
+    a zero of their sign."""
+    x, x_np = _narrow(_tiny_rows()[3:5], dtype)
+    q, _ = qdq.block_quantize(x)
+    s = np.float32([[1e-39], [-2e-38]])
+    want = rqdq.block_dequantize(jnp.asarray(_np(q)), jnp.asarray(s),
+                                 interpret=True)
+    got = qdq.block_dequantize(q, torch.from_numpy(s))
+    _equal(got, want)
+    assert np.array_equal(np.signbit(got.numpy()), np.signbit(want))
+    _equal(qdq_ops.decompress(q, torch.from_numpy(s), 0, (512,),
+                              device="cpu"),
+           rqdq_ops.decompress(jnp.asarray(_np(q)), jnp.asarray(s), 0,
+                               (512,)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_front_ends_flush_subnormals_as_the_reference(dtype):
+    """`fake_quant` (jitted), `compress` and `decompress` on the tiny
+    rows, flat, in blocks of 256 and (padded) of 100."""
+    x, x_np = _narrow(_tiny_rows().reshape(-1), dtype)
+    for block in (256, 100):
+        _equal(qdq_ops.fake_quant(x, block_size=block, device="cpu"),
+               rqdq_ops.fake_quant(jnp.asarray(x_np), block_size=block))
+        wq, ws, wpad = rqdq_ops.compress(jnp.asarray(x_np), block_size=block)
+        q, s, pad = qdq_ops.compress(x, block_size=block, device="cpu")
+        assert pad == wpad
+        _equal(q, wq)
+        _equal(s, ws)
+        _equal(qdq_ops.decompress(q, s, pad, x.shape, device="cpu"),
+               rqdq_ops.decompress(wq, ws, wpad, x.shape))
+
+
+def _tiny_operands(dtype):
+    """a (37, 70) with rows at 1e-37, 1e-38, 1e-39 and one of 0.9
+    FLT_MIN subnormals beside a 152 FLT_MIN maximum; b (70, 53) with
+    such columns."""
+    rng = np.random.default_rng(23)
+    a = rng.normal(size=(37, 70)).astype(np.float32)
+    b = rng.normal(size=(70, 53)).astype(np.float32)
+    for r, k in enumerate((1e-37, 1e-38, 1e-39)):
+        a[r] *= np.float32(k)
+        b[:, 2 * r] *= np.float32(k)
+    a[5] = np.resize(np.float32([152, 0.9, -0.9]), 70) * TINY
+    b[:, 7] = np.resize(np.float32([-152, 0.9, -0.9]), 70) * TINY
+    return _narrow(a, dtype), _narrow(b, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_quantize_helpers_flush_subnormals_as_the_jitted_reference(dtype):
+    """`quantize_rows` and `quantize_cols` (through `absmax_scale`) and
+    `matmul_quantized` on operands with tiny rows and columns."""
+    (a, a_np), (b, b_np) = _tiny_operands(dtype)
+    for port, ref, v, v_np in ((qmm_ops.quantize_rows,
+                                rqmm_ops.quantize_rows, a, a_np),
+                               (qmm_ops.quantize_cols,
+                                rqmm_ops.quantize_cols, b, b_np)):
+        for g, w in zip(port(v), jax.jit(ref)(jnp.asarray(v_np))):
+            _equal(g, w)
+    _equal(qmm_ops.matmul_quantized(a, b, device="cpu"),
+           rqmm_ops.matmul_quantized(jnp.asarray(a_np), jnp.asarray(b_np)))
+
+
+@pytest.mark.parametrize("sa,sb", [(1e-20, 1e-19), (1e-39, 1e30),
+                                   (1e30, -1e-39), (1e-30, 1e-9)])
+def test_qmatmul_dequant_flushes_subnormal_products(sa, sb):
+    """(f32(acc) * sa) * sb on 128^3 int8 codes: each product below
+    FLT_MIN becomes 0 (the Pallas kernel gives 16,381 nonzero outputs
+    at sa = 1e-20, sb = 1e-19, an unflushed epilogue 16,384), and a
+    subnormal scale reads as 0."""
+    rng = np.random.default_rng(128)
+    a, b = _codes(rng, 128, 128), _codes(rng, 128, 128)
+    sa = np.full((128, 1), sa, np.float32)
+    sb = np.full((1, 128), sb, np.float32)
+    want = rqmm.qmatmul_dequant(*map(jnp.asarray, (a, b, sa, sb)),
+                                interpret=True)
+    got = qmm.qmatmul_dequant(*map(torch.from_numpy, (a, b, sa, sb)))
+    _equal(got, want)
+    assert np.array_equal(np.signbit(got.numpy()), np.signbit(want))
+    assert not ((np.abs(got.numpy()) < TINY) & (got.numpy() != 0)).any()
+
+
+# ---------------------------------------------------------------------------
 # devices
 # ---------------------------------------------------------------------------
 

@@ -282,7 +282,8 @@ def stencil_extras(dev, card, flush, stencils, frame, t_in, t_out,
 # builds of qdq.cu with one part of the design taken out (the split),
 # timed in turns with the shipped kernel (`--qdq-split`)
 QDQ_SPLIT = {"two-pass read": ["-DQDQ_TWO_PASS=1"],
-             "x * rcp(s), not exact": ["-DQDQ_RCP_QUOTIENT=1"],
+             "__fdiv_rn": ["-DQDQ_FDIV=1"],
+             "exact path on every row": ["-DQDQ_EXACT_ONLY=1"],
              "16 lanes a row": ["-DQDQ_MAX_LANES=16"]}
 
 
@@ -373,6 +374,13 @@ def subnormal_probes(dev, card) -> None:
     got = QM.qmatmul_dequant(a, b, sa, sb)
     same("qmatmul_dequant subnormal products", (got,),
          (QM.qmatmul_dequant_reference(a, b, sa, sb),))
+    # the proof of the bf16 and f16 rows' reciprocal quotient
+    bad = {str(dt).split(".")[-1]: QD.quotient_mismatches(dt, dev)
+           for dt in (torch.bfloat16, torch.float16)}
+    assert not any(bad.values()), f"fast quotient != exact path: {bad}"
+    print(f"block_quantize fast quotient ({card}): codes that differ from "
+          f"the exact path's over every (scale, element) pair of a fast "
+          f"row: {bad}", flush=True)
     print(f"subnormal probes ({card}): block_quantize and "
           f"block_dequantize == plain version in f32, bf16 and f16 (rows "
           f"with scale 1 by dtype: {flushed}); qmatmul_dequant 128^3 at "
@@ -418,10 +426,7 @@ def qdq_extras(dev, card, flush, w, rows, baseline=None,
         for name, fn in fns.items():
             got = qdq_variant_call(fn, x)
             eq = all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
-            print(f"block_quantize {tag} {name} == plain version: {eq}",
-                  flush=True)
-            if name == "baseline" or not name.startswith("x * rcp"):
-                assert eq, f"block_quantize {tag} {name} != plain version"
+            assert eq, f"block_quantize {tag} {name} != plain version"
             calls[name] = lambda fn=fn, x=x: qdq_variant_call(fn, x)
         # in turns: two rounds of each, flushed by writing and by reading
         res = {k: {"dirty": 0.0, "clean": 0.0} for k in calls}

@@ -55,9 +55,10 @@ SIGNATURES = {
                 "qmatmul_pack_b_launch": [_P, _P, _I, _I, _P],
                 "qmatmul_config": [_c.POINTER(_I)]},
     # x, codes, scales, NB, BS, dtype (0 f32, 1 bf16, 2 f16), stream /
-    # codes, scales, out, NB, BS, stream
+    # codes, scales, out, NB, BS, stream / bad (uint64), dtype, stream
     "qdq": {"block_quantize_launch": [_P, _P, _P, _I64, _I, _I, _P],
-            "block_dequantize_launch": [_P, _P, _P, _I64, _I, _P]},
+            "block_dequantize_launch": [_P, _P, _P, _I64, _I, _P],
+            "block_quantize_check": [_P, _I, _P]},
 }
 
 _LOCK = threading.Lock()

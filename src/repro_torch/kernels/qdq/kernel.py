@@ -162,6 +162,21 @@ def block_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, s
 
 
+def quotient_mismatches(dtype: torch.dtype, device) -> int:
+    """On the card: how many (scale, element) pairs of bf16 or f16, of
+    the rows whose codes `qdq.cu` computes from the scale's reciprocal
+    (finite scales of at least 2 FLT_MIN, |x| <= 256 s), get another
+    code than the exact path's (``__fdiv_rn``, rounding, ``rintf``).
+    Every such pair is tried; 0 is the proof that the two agree."""
+    from repro_torch.kernels import _build
+    if dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"quotient_mismatches: want bf16 or f16, got "
+                         f"{dtype}")
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    _build.launch("qdq", "block_quantize_check", (bad,), DTYPES[dtype])
+    return int(bad.item())
+
+
 def block_dequantize(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """codes int8 (NB, BS), scales f32 (NB, 1) -> f32 (NB, BS)."""
     if q.dtype != torch.int8 or q.dim() != 2 or q.shape[1] == 0 \

@@ -448,6 +448,14 @@ def test_block_kernels_equal_plain_versions(cuda, NB, BS, offset, dtype):
           QD.block_dequantize_reference(q, s))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_block_quantize_fast_quotient_is_exact(cuda, dtype):
+    """The codes that bf16 and f16 rows compute from the scale's
+    reciprocal equal the exact path's on every (scale, element) pair
+    such a row can hold."""
+    assert QD.quotient_mismatches(dtype, cuda) == 0
+
+
 def test_front_ends_on_the_card_equal_the_cpu(cuda):
     """The card's front ends against the same front ends on the CPU,
     which the CPU tests hold equal to the JAX package."""

@@ -175,7 +175,6 @@ template <> struct Elem<float> {
 // the two 16-bit types: magnitudes two to a word, the quotient from the
 // row's correctly rounded reciprocal and one residual step
 template <class T> struct Elem16 {
-  static constexpr bool FLUSH = false;
   static constexpr int WORDS = 1;
   static __device__ uint32_t absmax(uint32_t acc, const uint4 (&w)[WORDS]) {
     const uint32_t* u = (const uint32_t*)w;
@@ -227,6 +226,7 @@ template <> struct Elem<__nv_bfloat16> : Elem16<__nv_bfloat16> {
 };
 
 template <> struct Elem<__half> : Elem16<__half> {
+  static constexpr bool FLUSH = false;
   static __device__ float widen(__half v) { return __half2float(v); }
   static __device__ float narrow(float v) {
     return __half2float(__float2half_rn(v));
@@ -475,7 +475,7 @@ int quantize(const void* xv, void* qv, void* sv, long long NB, int BS,
 // code that differs from the exact path's counts in `bad`.  The
 // elements are those a row of scale s can hold: finite, |x| <= 256 s
 // (a row's maximum is at most 127.5 s; up to 190 s for f16 scales that
-// are f16 subnormals).
+// are f16 subnormals), so no infinity.
 template <class T>
 __global__ void __launch_bounds__(THREADS)
 check_kernel(unsigned long long* __restrict__ bad) {
@@ -496,7 +496,9 @@ check_kernel(unsigned long long* __restrict__ bad) {
     const int8_t* c = (const int8_t*)&got;
 #pragma unroll
     for (int k = 0; k < CHUNK; ++k)
-      if (fabsf(v[k]) <= 256.f * s && c[k] != exact_code<T>(v[k], s)) ++n;
+      if (isfinite(v[k]) && fabsf(v[k]) <= 256.f * s &&
+          c[k] != exact_code<T>(v[k], s))
+        ++n;
   }
   if (n) atomicAdd(bad, n);
 }

@@ -284,7 +284,8 @@ def stencil_extras(dev, card, flush, stencils, frame, t_in, t_out,
 QDQ_SPLIT = {"two-pass read": ["-DQDQ_TWO_PASS=1"],
              "__fdiv_rn": ["-DQDQ_FDIV=1"],
              "exact path on every row": ["-DQDQ_EXACT_ONLY=1"],
-             "16 lanes a row": ["-DQDQ_MAX_LANES=16"]}
+             "16 bytes a lane": ["-DQDQ_LANE_BYTES=16"],
+             "64 bytes a lane": ["-DQDQ_LANE_BYTES=64"]}
 
 
 def build_qdq_variants(variants: dict) -> dict:

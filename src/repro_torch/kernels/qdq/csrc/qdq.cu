@@ -50,9 +50,10 @@
 //     aligned and a row fits in the registers of a warp (BS <= 32 x
 //     MAX_CHUNKS x 8): each lane holds chunks of 8 consecutive elements
 //     as raw words (one 16-byte load of bf16 or f16, two of f32), L
-//     lanes a row (the least power of two that gives each lane a
-//     chunk, up to 32, and then up to MAX_CHUNKS chunks a lane), so
-//     32 / L rows a warp.  A row is read from memory once: its maximum
+//     lanes a row (the least power of two, up to 32, that gives no
+//     lane more than LANE_BYTES = 32 bytes of the row: 2 chunks a lane
+//     of bf16 and f16, 1 of f32, where the row is long enough; then up
+//     to MAX_CHUNKS chunks a lane), so 32 / L rows a warp.  A row is read from memory once: its maximum
 //     is an integer maximum of the elements' magnitude bits (two 16-bit
 //     lanes a word for bf16 and f16; NaN's bits sort above inf's, so it
 //     propagates), reduced with `__shfl_xor_sync` over the row's L
@@ -107,8 +108,8 @@
 #ifndef QDQ_EXACT_ONLY      // every row takes the exact path
 #define QDQ_EXACT_ONLY 0
 #endif
-#ifndef QDQ_MAX_LANES       // fewer lanes a row: more rows a warp
-#define QDQ_MAX_LANES 32
+#ifndef QDQ_LANE_BYTES      // bytes of a row a lane holds at least
+#define QDQ_LANE_BYTES 32
 #endif
 
 namespace {
@@ -448,10 +449,14 @@ int quantize(const void* xv, void* qv, void* sv, long long NB, int BS,
   const bool chunks = BS % CHUNK == 0 && (uintptr_t)x % 16 == 0 &&
                       (uintptr_t)q % 8 == 0;
   const int nch = BS / CHUNK;
-  if (chunks && nch <= QDQ_MAX_LANES * MAX_CHUNKS) {
-    // a chunk a lane where the row has up to 32 chunks, else 32 lanes
+  if (chunks && nch <= 32 * MAX_CHUNKS) {
+    // the fewest lanes, a power of two up to 32, that give each lane at
+    // most LANE_BYTES of the row: 2 loads in flight a lane where the
+    // row is long enough, so 32 / L rows a warp
+    const long long row_bytes = (long long)BS * sizeof(T);
     int lanes_log2 = 0;
-    while ((1 << lanes_log2) < QDQ_MAX_LANES && (1 << lanes_log2) < nch)
+    while (lanes_log2 < 5 &&
+           ((long long)QDQ_LANE_BYTES << lanes_log2) < row_bytes)
       ++lanes_log2;
     const int per = (nch + (1 << lanes_log2) - 1) >> lanes_log2;
     switch (per) {

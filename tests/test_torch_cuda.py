@@ -403,13 +403,15 @@ def test_pack_pre_pass_alone(cuda, K, N):
     _same(bt, QM.pack_b_reference(b))
 
 
-# (NB, BS, offset): the register path with a chunk of 8 a lane at 256
-# (32 lanes a row), 64 (8 lanes, 4 rows a warp), 40 (5 of 8 lanes), 8 (1
-# lane, 32 rows a warp), 520 (3 chunks a lane) and 1024 (4 chunks a
-# lane); the loop path at 8192 and 4104 (an odd number of chunks); the
-# general path at BS % 8 != 0 (33, 1, 6) and with x 1, 3 or 7 elements
-# into a larger buffer (2, 6, 14 bytes off 16 in bf16 and f16; 4, 12,
-# 28 in f32)
+# (NB, BS, offset): the register path (chunks of 8 elements, at most 32
+# bytes a lane where the row is longer) at 256 (f32: 32 lanes a row;
+# bf16 and f16: 16 lanes of 2 chunks, 2 rows a warp), 64 (8 or 4 lanes,
+# 4 or 8 rows a warp), 40 (5 chunks on 8 lanes, or on 4 lanes of 1 or 2
+# chunks), 8 (1 lane, 32 rows a warp), 520 (3 chunks a lane on 32 lanes)
+# and 1024 (4 chunks a lane); the loop path at 8192 and 4104 (an odd
+# number of chunks); the general path at BS % 8 != 0 (33, 1, 6) and with
+# x 1, 3 or 7 elements into a larger buffer (2, 6, 14 bytes off 16 in
+# bf16 and f16; 4, 12, 28 in f32)
 BLOCKS = [(1000, 256, 0), (37, 33, 0), (5, 1, 0), (40, 6, 0), (300, 64, 0),
           (33, 40, 0), (70, 8, 0), (20, 520, 0), (50, 1024, 0),
           (9, 8192, 0), (12, 4104, 0), (100, 256, 1), (100, 256, 3),

@@ -130,7 +130,8 @@ def graph_ms(fns, flush, reps: int = 5) -> float:
     """Device time per launch of `fns` (one launch each, on buffers of
     their own), captured once in a CUDA graph and replayed `reps` times
     after writing `flush`: launches back to back, as a pipeline issues
-    them, without a timed launch's fixed cost or the host's pace."""
+    them, without a timed launch's fixed cost or the host's pace.  One
+    replay first, untimed, uploads the graph."""
     import torch
     for fn in fns:          # build and configure outside the capture
         fn()
@@ -139,6 +140,7 @@ def graph_ms(fns, flush, reps: int = 5) -> float:
     with torch.cuda.graph(graph):
         for fn in fns:
             fn()
+    graph.replay()
     pairs = []
     for _ in range(reps):
         flush.zero_()
@@ -436,23 +438,24 @@ def qdq_extras(dev, card, flush, w, rows, baseline=None,
                 res[k]["dirty"] += cold_ms(fn, 25, flush) / 2
                 res[k]["clean"] += cold_ms(fn, 25, flush, clean=True) / 2
         # back to back: 8 launches over 4 copies of the input (or of the
-        # copy's source), each more than the L2 holds together
+        # copy's source), more than the L2 holds together; in turns, two
+        # rounds, the second in the reverse order
         xs = [x.clone() for _ in range(4)]
-        for k in calls:
-            if k == "copy":
-                srcs = [src8.clone() for _ in range(4)]
-                dsts = [torch.empty_like(src8) for _ in range(4)]
-                fns_k = [lambda a=a, b=b: b.copy_(a)
-                         for a, b in zip(srcs, dsts)] * 2
-            elif k == "kernel":
-                fns_k = [lambda x=x_: QD.block_quantize(x) for x_ in xs] * 2
-            else:
-                fns_k = [lambda x=x_, fn=fns[k]: qdq_variant_call(fn, x)
-                         for x_ in xs] * 2
-            res[k]["graph"] = graph_ms(fns_k, flush)
-            if k == "copy":
-                del srcs, dsts
-        del xs, src8, dst8
+        srcs = [src8.clone() for _ in range(4)]
+        dsts = [torch.empty_like(src8) for _ in range(4)]
+        graphs = {"kernel": [lambda x=x_: QD.block_quantize(x) for x_ in xs],
+                  "copy": [lambda a=a, b=b: b.copy_(a)
+                           for a, b in zip(srcs, dsts)]}
+        graphs.update({k: [lambda x=x_, fn=fn: qdq_variant_call(fn, x)
+                           for x_ in xs] for k, fn in fns.items()})
+        rounds = {k: [] for k in graphs}
+        for order in (list(graphs), list(graphs)[::-1]):
+            for k in order:
+                rounds[k].append(graph_ms(graphs[k] * 2, flush))
+        for k, v in rounds.items():
+            res[k]["graph"] = sum(v) / len(v)
+            res[k]["graph_rounds"] = v
+        del xs, srcs, dsts, graphs, src8, dst8
         three[tag] = res
         print(f"block_quantize {nb}x{QDQ_BLOCK} {tag} ({card}): ms with the "
               f"L2 flushed by writing (dirty), by reading (clean) and back "

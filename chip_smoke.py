@@ -281,59 +281,6 @@ def stencil_extras(dev, card, flush, stencils, frame, t_in, t_out,
           flush=True)
 
 
-# builds of qdq.cu with one part of the design taken out (the split),
-# timed in turns with the shipped kernel (`--qdq-split`)
-QDQ_SPLIT = {"two-pass read": ["-DQDQ_TWO_PASS=1"],
-             "__fdiv_rn": ["-DQDQ_FDIV=1"],
-             "exact path on every row": ["-DQDQ_EXACT_ONLY=1"],
-             "16 bytes a lane": ["-DQDQ_LANE_BYTES=16"],
-             "64 bytes a lane": ["-DQDQ_LANE_BYTES=64"]}
-
-
-def build_qdq_variants(variants: dict) -> dict:
-    """Compile each {name: (source, extra nvcc flags)} with the port's
-    flags, one nvcc each, all at once, into `build/kernels/variants/`;
-    returns {name: block_quantize_launch bound through ctypes}."""
-    import ctypes
-    import hashlib
-    from repro_torch.kernels import _build
-    out = _build.BUILD_DIR / "variants"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, (src, flags) in variants.items():
-        h = hashlib.sha256(Path(src).read_bytes() + " ".join(
-            _build.NVCC_FLAGS + flags).encode()).hexdigest()[:16]
-        lib = out / f"qdq-{h}.so"
-        procs[name] = (lib, None if lib.exists() else subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib),
-             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    fns = {}
-    for name, (lib, proc) in procs.items():
-        if proc is not None:
-            log = proc.communicate(timeout=600)[0]
-            assert proc.returncode == 0, f"qdq variant {name}: {log}"
-        fn = ctypes.CDLL(str(lib)).block_quantize_launch
-        fn.argtypes = _build.SIGNATURES["qdq"]["block_quantize_launch"]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
-
-
-def qdq_variant_call(fn, x):
-    """One launch of a variant's `block_quantize_launch` on x, with the
-    wrapper's allocations; returns (codes, scales)."""
-    import torch
-    from repro_torch.kernels.qdq import kernel as QD
-    nb, bs = x.shape
-    q = torch.empty((nb, bs), dtype=torch.int8, device=x.device)
-    s = torch.empty((nb, 1), dtype=torch.float32, device=x.device)
-    rc = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), nb, bs,
-            QD.DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream)
-    assert rc == 0, f"block_quantize variant: CUDA error {rc}"
-    return q, s
-
-
 def subnormal_probes(dev, card) -> None:
     """Rows whose values or scales fall below FLT_MIN, in f32, bf16 and
     f16, through block_quantize and block_dequantize (a subnormal scale
@@ -391,27 +338,14 @@ def subnormal_probes(dev, card) -> None:
           f"nonzero outputs of 16384", flush=True)
 
 
-def qdq_extras(dev, card, flush, w, rows, baseline=None,
-               split=False) -> None:
+def qdq_extras(dev, card, flush, w, rows) -> None:
     """Beside the block_quantize rows: f32, bf16 and f16 timed three ways
     (the L2 flushed by writing and by reading, and back to back in a
-    CUDA graph over 4 copies of the input), beside a device-to-device
-    copy of the same bytes (the copy yardstick), and, where asked, in
-    turns with the kernel built from `baseline` (another qdq.cu) and the
-    split builds (`QDQ_SPLIT`).  Adds them to `rows`."""
+    CUDA graph over 4 copies of the input), in turns with a
+    device-to-device copy of the same bytes (the copy yardstick).  Adds
+    them to `rows`."""
     import torch
     from repro_torch.kernels.qdq import kernel as QD
-    variants = {}
-    if baseline:
-        variants["baseline"] = (Path(baseline), [])
-    if split:
-        src = ROOT / "src/repro_torch/kernels/qdq/csrc/qdq.cu"
-        variants.update({k: (src, f) for k, f in QDQ_SPLIT.items()})
-    t0 = time.perf_counter()
-    fns = build_qdq_variants(variants)
-    if fns:
-        print(f"qdq variants {sorted(fns)} built in "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
     print(f"qdq.cu ptxas ({card}): {ptxas_lines('qdq', 'quantize')}",
           flush=True)
     x32 = w.reshape(-1, QDQ_BLOCK)
@@ -423,14 +357,8 @@ def qdq_extras(dev, card, flush, w, rows, baseline=None,
         moved = x.element_size() * n + n + 4 * nb
         src8 = torch.empty(moved // 2, dtype=torch.uint8, device=dev)
         dst8 = torch.empty_like(src8)
-        want = QD.block_quantize_reference(x)
         calls = {"kernel": lambda x=x: QD.block_quantize(x),
                  "copy": lambda: dst8.copy_(src8)}
-        for name, fn in fns.items():
-            got = qdq_variant_call(fn, x)
-            eq = all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
-            assert eq, f"block_quantize {tag} {name} != plain version"
-            calls[name] = lambda fn=fn, x=x: qdq_variant_call(fn, x)
         # in turns: two rounds of each, flushed by writing and by reading
         res = {k: {"dirty": 0.0, "clean": 0.0} for k in calls}
         for _ in range(2):
@@ -446,8 +374,6 @@ def qdq_extras(dev, card, flush, w, rows, baseline=None,
         graphs = {"kernel": [lambda x=x_: QD.block_quantize(x) for x_ in xs],
                   "copy": [lambda a=a, b=b: b.copy_(a)
                            for a, b in zip(srcs, dsts)]}
-        graphs.update({k: [lambda x=x_, fn=fn: qdq_variant_call(fn, x)
-                           for x_ in xs] for k, fn in fns.items()})
         rounds = {k: [] for k in graphs}
         for order in (list(graphs), list(graphs)[::-1]):
             for k in order:
@@ -465,7 +391,7 @@ def qdq_extras(dev, card, flush, w, rows, baseline=None,
     rows["block_quantize"]["three_ways"] = three
 
 
-def kernel_library(dev, card, qdq_baseline=None, qdq_split=False):
+def kernel_library(dev, card):
     """Phase 2b (see the module docstring).  Returns the result line's
     rows of the five library kernels."""
     import numpy as np
@@ -666,7 +592,7 @@ def kernel_library(dev, card, qdq_baseline=None, qdq_split=False):
                 n + 4 * nb + 4 * n, [(2 * n, PEAK_OPS_PER_S)],
                 library=lambda: qn * sn)
     subnormal_probes(dev, card)
-    qdq_extras(dev, card, flush, w, rows, qdq_baseline, qdq_split)
+    qdq_extras(dev, card, flush, w, rows)
     w16 = w.to(torch.bfloat16)
     frame_u8 = frame.astype(np.uint8)
     t_in2 = FixedPointType(10, 2, False)
@@ -1008,16 +934,7 @@ def band_kernel_times(dev, card, params) -> dict:
     return out
 
 
-def main(argv=None) -> int:
-    import argparse
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--qdq-baseline", metavar="PATH",
-                    help="another qdq.cu to build and time in turns with "
-                         "block_quantize")
-    ap.add_argument("--qdq-split", action="store_true",
-                    help="also time block_quantize built with one part of "
-                         "its design taken out (QDQ_SPLIT)")
-    args = ap.parse_args(argv)
+def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1065,8 +982,7 @@ def main(argv=None) -> int:
     band = band_kernel_times(dev, card, params)
 
     # -- 2b. the kernel library ---------------------------------------------
-    library_rows = kernel_library(dev, card, args.qdq_baseline,
-                                  args.qdq_split)
+    library_rows = kernel_library(dev, card)
 
     # -- 3. serving: the main path ----------------------------------------
     n_frames = 16

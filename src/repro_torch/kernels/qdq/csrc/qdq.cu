@@ -97,27 +97,14 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
-// Build-time switches that take one part of the design out, for timing
-// only (the split); 0 everywhere in the shipped build.
-#ifndef QDQ_TWO_PASS        // the register path reads each chunk twice
-#define QDQ_TWO_PASS 0
-#endif
-#ifndef QDQ_FDIV            // bf16 and f16 divide with __fdiv_rn
-#define QDQ_FDIV 0
-#endif
-#ifndef QDQ_EXACT_ONLY      // every row takes the exact path
-#define QDQ_EXACT_ONLY 0
-#endif
-#ifndef QDQ_LANE_BYTES      // bytes of a row a lane holds at least
-#define QDQ_LANE_BYTES 32
-#endif
-
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int CHUNK = 8;          // elements a lane holds together
 constexpr int MAX_CHUNKS = 4;     // chunks a lane holds in registers
+constexpr int LANE_BYTES = 32;    // bytes of a row a lane holds at most,
+                                  // where the row has 32 lanes' worth
 constexpr float ROUND = 12582912.f;   // 1.5 2^23: adding it rounds to
                                       // an integer, half to even
 
@@ -187,12 +174,8 @@ template <class T> struct Elem16 {
     return max(acc & 0xffffu, acc >> 16);
   }
   static __device__ float quotient(float x, float s, float r) {
-#if QDQ_FDIV
-    return __fdiv_rn(x, s);
-#else
     const float q0 = __fmul_rn(x, r);
     return __fmaf_rn(__fmaf_rn(-q0, s, x), r, q0);
-#endif
   }
 };
 
@@ -279,7 +262,7 @@ __device__ __forceinline__ float row_scale(float m) {
 
 // whether a row of scale s takes the fast codes (false for NaN)
 __device__ __forceinline__ bool fast_row(float s) {
-  return !QDQ_EXACT_ONLY && s >= 2.f * FLT_MIN && s <= FLT_MAX;
+  return s >= 2.f * FLT_MIN && s <= FLT_MAX;
 }
 
 // the 8 codes of a chunk of a fast row (r = 1/s, correctly rounded)
@@ -360,12 +343,7 @@ quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
 #pragma unroll
   for (int j = 0; j < NCH; ++j) {
     const int c = j * L + sub;
-    if (c < nch) {
-#if QDQ_TWO_PASS
-      load_chunk(xr + CHUNK * c, w[j]);
-#endif
-      store_chunk<T>(qr + CHUNK * c, w[j], sc, r, fast);
-    }
+    if (c < nch) store_chunk<T>(qr + CHUNK * c, w[j], sc, r, fast);
   }
 }
 
@@ -456,7 +434,7 @@ int quantize(const void* xv, void* qv, void* sv, long long NB, int BS,
     const long long row_bytes = (long long)BS * sizeof(T);
     int lanes_log2 = 0;
     while (lanes_log2 < 5 &&
-           ((long long)QDQ_LANE_BYTES << lanes_log2) < row_bytes)
+           ((long long)LANE_BYTES << lanes_log2) < row_bytes)
       ++lanes_log2;
     const int per = (nch + (1 << lanes_log2) - 1) >> lanes_log2;
     switch (per) {

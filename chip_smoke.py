@@ -31,8 +31,16 @@ Phases (any failure raises, and the exit code is not 0):
    beside `qmatmul_i32`, time
    `torch._int_mm` on b row-major and column-major and the kernel's
    pack pre-pass alone, and print the GEMM's tile, stages, shared bytes
-   and registers; then drive the library's front ends once with their
-   launch counts set to 0 just before, and check what comes out;
+   and registers; beside `block_dequantize`, time `q * s` (one PyTorch
+   call); hold `block_quantize`, `block_dequantize` and
+   `qmatmul_dequant` to their plain versions on rows and products below
+   FLT_MIN (the flush rules), count the bf16 and f16 (scale, element)
+   pairs whose reciprocal quotient differs from the exact division
+   (none may), and time `block_quantize` in f32, bf16 and f16 with the
+   L2 flushed by writing and by reading and back to back in a CUDA
+   graph, in turns with a copy of the same bytes; then drive the
+   library's front ends once with their launch counts set to 0 just
+   before, and check what comes out;
 3. serve 16 USM 1080x1920 frames through the port's `PipelineServer` at
    batch 4 on the kernel, with launch counts set to 0 just before, and
    check every result against the plain executor on the card; serve

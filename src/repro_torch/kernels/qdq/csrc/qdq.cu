@@ -19,8 +19,12 @@
 //     a constant as a product with the f32-rounded reciprocal, in the
 //     Pallas kernel and in every jitted caller (an ulp apart on some
 //     rows), so s = max * f32(1/127) here too;
-//   * the codes use a true IEEE division (`__fdiv_rn`), never x * (1 / s);
-//   * `rintf` rounds half to even, as `jnp.rint`;
+//   * the codes are those of a true IEEE division x / s, never of
+//     x * (1 / s): f32 divides (`__fdiv_rn`), and bf16 and f16 take the
+//     same quotient from the row's reciprocal and one fma residual step
+//     (see Design);
+//   * codes round half to even, as `jnp.rint` (`rintf`, or adding
+//     1.5 2^23);
 //   * a NaN quotient (a row whose scale is NaN or infinite) gives code
 //     0: XLA's float-to-int conversion sends NaN to 0 after the clip,
 //     which passes NaN through;
@@ -53,12 +57,12 @@
 //     lanes a row (the least power of two, up to 32, that gives no
 //     lane more than LANE_BYTES = 32 bytes of the row: 2 chunks a lane
 //     of bf16 and f16, 1 of f32, where the row is long enough; then up
-//     to MAX_CHUNKS chunks a lane), so 32 / L rows a warp.  A row is read from memory once: its maximum
-//     is an integer maximum of the elements' magnitude bits (two 16-bit
-//     lanes a word for bf16 and f16; NaN's bits sort above inf's, so it
-//     propagates), reduced with `__shfl_xor_sync` over the row's L
-//     lanes, and its codes come from the same registers, 8 a lane in
-//     one 8-byte store;
+//     to MAX_CHUNKS chunks a lane), so 32 / L rows a warp.  A row is
+//     read from memory once: its maximum is an integer maximum of the
+//     elements' magnitude bits (two 16-bit lanes a word for bf16 and
+//     f16; NaN's bits sort above inf's, so it propagates), reduced with
+//     `__shfl_xor_sync` over the row's L lanes, and its codes come from
+//     the same registers, 8 a lane in one 8-byte store;
 //   * the codes of a row with a finite scale of at least 2 FLT_MIN (the
 //     fast rows: every row of finite data but the tiny ones) take no
 //     conversion instruction but the packed rounding to bf16x2 or
@@ -103,8 +107,8 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int CHUNK = 8;          // elements a lane holds together
 constexpr int MAX_CHUNKS = 4;     // chunks a lane holds in registers
-constexpr int LANE_BYTES = 32;    // bytes of a row a lane holds at most,
-                                  // where the row has 32 lanes' worth
+constexpr int LANE_BYTES = 32;    // a row takes the fewest lanes (up to
+                                  // 32) that hold at most this each
 constexpr float ROUND = 12582912.f;   // 1.5 2^23: adding it rounds to
                                       // an integer, half to even
 
@@ -162,12 +166,13 @@ template <> struct Elem<float> {
 
 // the two 16-bit types: magnitudes two to a word, the quotient from the
 // row's correctly rounded reciprocal and one residual step
-template <class T> struct Elem16 {
+struct Elem16 {
   static constexpr int WORDS = 1;
   static __device__ uint32_t absmax(uint32_t acc, const uint4 (&w)[WORDS]) {
     const uint32_t* u = (const uint32_t*)w;
 #pragma unroll
-    for (int k = 0; k < CHUNK / 2; ++k) acc = __vmaxu2(acc, u[k] & 0x7fff7fffu);
+    for (int k = 0; k < CHUNK / 2; ++k)
+      acc = __vmaxu2(acc, u[k] & 0x7fff7fffu);
     return acc;
   }
   static __device__ uint32_t fold(uint32_t acc) {
@@ -179,7 +184,7 @@ template <class T> struct Elem16 {
   }
 };
 
-template <> struct Elem<__nv_bfloat16> : Elem16<__nv_bfloat16> {
+template <> struct Elem<__nv_bfloat16> : Elem16 {
   static constexpr bool FLUSH = true;
   static __device__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
   static __device__ float narrow(float v) {
@@ -209,7 +214,7 @@ template <> struct Elem<__nv_bfloat16> : Elem16<__nv_bfloat16> {
   }
 };
 
-template <> struct Elem<__half> : Elem16<__half> {
+template <> struct Elem<__half> : Elem16 {
   static constexpr bool FLUSH = false;
   static __device__ float widen(__half v) { return __half2float(v); }
   static __device__ float narrow(float v) {

@@ -78,10 +78,7 @@ def absmax_scale(x: torch.Tensor, dim: int, qmax: int = QMAX
     below the midpoint under FLT_MIN).  f16 flushes nothing: every f16
     value and every f16 scale is normal in f32, and the f32 -> f16
     rounding does not flush."""
-    if x.dtype == torch.float16:
-        m = torch.amax(torch.abs(x), dim=dim, keepdim=True)
-    else:
-        m = torch.amax(flush_subnormal(torch.abs(x)), dim=dim, keepdim=True)
+    m = torch.amax(flush_subnormal(torch.abs(x)), dim=dim, keepdim=True)
     if x.dtype == torch.float32:
         s = flush_subnormal(m * inv_qmax(qmax))
     elif x.dtype == torch.bfloat16:
@@ -113,8 +110,7 @@ def quantize_codes(x: torch.Tensor, s: torch.Tensor, qmax: int = QMAX
     f32 or bf16 x below `FLT_MIN` divides as 0, as in the compiled
     code; a subnormal quotient needs no flush, as it rounds to code 0
     either way."""
-    if x.dtype != torch.float16:
-        x = flush_subnormal(x)
+    x = flush_subnormal(x)
     q = x / s if x.dtype == torch.float32 else (x.float() / s.float()).to(
         x.dtype)
     return int8_codes(q, qmax)

@@ -20,7 +20,7 @@
 // multiplies with `__fmul_rn` in the reference's order, a-scale first.
 // XLA's compiled code on the CPU reads a subnormal f32 scale as 0 and
 // flushes each subnormal product to 0; the epilogue flushes the same
-// values one by one (`ftz`; no floating-point mode, no `-ftz=true`).
+// values one by one (`ftz`; no floating-point mode, no flush build flag).
 //
 // Bound, at M = 4096, K = 2560, N = 9728 (qwen3-4b's MLP up-projection
 // over 4096 tokens): 2 M N K = 204.0 G int8 operations at the data

@@ -514,6 +514,20 @@ def test_block_kernels_flush_subnormals_as_the_pallas_kernels(dtype):
         assert s[8, 0] == TINY and q[8, :2].tolist() == [127, -3]
 
 
+def test_bf16_scale_flushes_as_the_jitted_reference_on_every_maximum():
+    """Every non-negative bf16 value but NaN (the NaN rows are above) as
+    a row's maximum: the port's bf16 scale (the f32 quotient flushed,
+    then rounded to bf16) equals the reference's jitted `absmax_scale`.
+    At qmax = 127 flushing before or after the rounding gives the same
+    scale on each of them."""
+    x_np = np.zeros((0x7f81, 8), ml_dtypes.bfloat16)
+    x_np[:, 0] = np.arange(0x7f81, dtype=np.uint16).view(ml_dtypes.bfloat16)
+    x = torch.from_numpy(x_np.view(np.int16)).view(torch.bfloat16)
+    want = jax.jit(functools.partial(rqmm_ops.absmax_scale, axis=1))(
+        jnp.asarray(x_np))
+    _equal(qmm_ops.absmax_scale(x, axis=1), want)
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_block_dequantize_reads_a_subnormal_scale_as_zero(dtype):
     """Scales below FLT_MIN, as `decompress` may be handed them, read as

@@ -9,15 +9,19 @@ Phases (any failure raises, and the exit code is not 0):
    libraries (`fused_band.cu`, `stencil.cu`, `qmatmul.cu`, `qdq.cu` under
    `src/repro_torch/kernels/*/csrc/`), one nvcc each, in parallel;
 2. hold the band kernel against its plain PyTorch version on the card,
-   island by island with `torch.equal`: usm, hcd and dus_ext at
-   1080x1920, batch 2, and dus_ext at 96x96 on a saturating phase plan;
-   check a known answer (USM leaves a flat frame unchanged); at the
+   island by island with `torch.equal`: usm, hcd, dus_ext, of and
+   of_pyramid (frame pairs) at 1080x1920, batch 2, dus_ext at 96x96 on
+   a saturating phase plan, and the narrow lowerings
+   (``datapath="narrow"``) of of, hcd and usm at 1080x1920, printing
+   which stages ran in f32; check known answers (USM leaves a flat frame
+   unchanged; two equal flat frames give zero optical flow); at the
    serving shape 4x1080x1920, print each island's column tiles, work
    items, shared memory, blocks per SM, registers and tile placement
-   (failing if any tile is in global memory), and time usm, hcd and
-   dus_ext warm, with the L2 flushed, with every tile in global memory
-   and at column tile 128, beside their bounds and (usm) the plain
-   version;
+   (failing if any tile is in global memory), and time usm, hcd,
+   dus_ext, of and of_pyramid warm and with the L2 flushed beside their
+   bounds (usm, hcd and dus_ext also with every tile in global memory
+   and at column tile 128; of also in the narrow lowering), and the
+   plain version on usm and of;
 2b. the kernel library: hold each of its five kernels against its plain
    version with `torch.equal` and time both at the sizes users run: one
    1080x1920 frame through a Sobel, a 5x5 blur and a 7x7 stencil of 9
@@ -45,7 +49,9 @@ Phases (any failure raises, and the exit code is not 0):
    batch 4 on the kernel, with launch counts set to 0 just before, and
    check every result against the plain executor on the card; serve
    them once more under `torch.profiler` and print the device's busy
-   share and where its time went (trace in `chiprun_out/`);
+   share and where its time went (trace in `chiprun_out/`); then serve
+   16 optical-flow frame pairs at 1080x1920, batch 4, the same way
+   (counts from 0, every result against the plain executor);
 4. print a `{"kernels": [...]}` line, the card's name and power limit,
    and, last, `{"ok": true, "device": {...}}`.
 
@@ -67,6 +73,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 # kernel's f64 and int64 work runs no faster, so ops / this rate stays a
 # lower bound on its time
 PEAK_OPS_PER_S = 67e12
+# float64 outside the tensor cores (data sheet): the band kernel's f64
+# expression ops run at this rate at best
+F64_OPS_PER_S = 34e12
 INT8_TC_OPS_PER_S = 1979e12    # int8 tensor cores, dense (data sheet)
 FRAME = (1080, 1920)
 # tokens x d_model x d_ff: qwen3-4b's MLP up-projection over 4096 tokens
@@ -91,6 +100,17 @@ def frames(shape, seed):
     import numpy as np
     return np.random.default_rng(seed).integers(0, 256, shape).astype(
         np.float64)
+
+
+N_IN = {"of": 2, "of_pyramid": 2}      # optical flow takes frame pairs
+
+
+def inputs(name, shape, seed):
+    """A pipeline's input: one frame, or a tuple of frames (seeds
+    `seed`, `seed + 1`) for optical flow."""
+    n = N_IN.get(name, 1)
+    return frames(shape, seed) if n == 1 else tuple(
+        frames(shape, seed + k) for k in range(n))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -690,37 +710,45 @@ def kernel_library(dev, card):
             for name, (src, rep) in sources.items()]
 
 
-def islands(pipe, types, params, shape):
+def islands(pipe, types, params, shape, datapath="exact"):
     """The lowered pipeline and its (island, encoded program) pairs."""
     from repro_torch.kernels.stencil.kernel import encode_program
     from repro_torch.lowering import lower, partition_islands
     from repro_torch.lowering.cuda_backend import island_program
-    lp = lower(pipe, types, params=params)
+    lp = lower(pipe, types, params=params, datapath=datapath)
     plan = partition_islands(lp, shape[-2:])
     return lp, [(isl, encode_program(island_program(lp, isl)))
                 for isl in plan.islands]
 
 
 def ingest(lp, img, dev):
+    """Input stage -> its stored tile on `dev`; `img` is one array or a
+    tuple of arrays, one per input stage."""
     import torch
     from repro_torch.lowering import backends as B
-    x = torch.from_numpy(img).to(dev)
-    return {n: B.ingest_input(x, lp.stages[n])
-            for n in lp.pipeline.input_stages()}
+    imgs = img if isinstance(img, tuple) else (img,)
+    return {n: B.ingest_input(torch.from_numpy(x).to(dev), lp.stages[n])
+            for n, x in zip(lp.pipeline.input_stages(), imgs)}
 
 
-def check_islands(label, pipe, types, params, img, dev) -> float:
+def shape_of(img):
+    return (img[0] if isinstance(img, tuple) else img).shape
+
+
+def check_islands(label, pipe, types, params, img, dev,
+                  datapath="exact") -> float:
     """Kernel == plain version on every island; returns max |error|."""
     import torch
     from repro_torch.kernels.stencil import kernel as K
-    lp, isls = islands(pipe, types, params, img.shape)
+    shape = shape_of(img)
+    lp, isls = islands(pipe, types, params, shape, datapath)
     buffers = ingest(lp, img, dev)
     err = 0.0
     for isl, enc in isls:
         ins = [buffers[n] for n in isl.inputs]
-        got = K.fused_pipeline(enc, isl.schedule.grid, img.shape[0])(*ins)
+        got = K.fused_pipeline(enc, isl.schedule.grid, shape[0])(*ins)
         want = K.fused_pipeline_reference(enc, isl.schedule.grid,
-                                          img.shape[0])(*ins)
+                                          shape[0])(*ins)
         torch.cuda.synchronize()
         for n, g, w in zip(isl.outputs, got, want):
             assert g.device.type == dev.type and g.dtype == w.dtype \
@@ -731,9 +759,13 @@ def check_islands(label, pipe, types, params, img, dev) -> float:
                 raise AssertionError(f"{label}: kernel != plain version on "
                                      f"island {isl.idx} stage {n}")
         buffers.update(zip(isl.outputs, got))
+    f32 = [n for n in lp.order if lp.stages[n].expr_dtype == "f32"
+           and lp.stages[n].kind == "expr"]
     print(f"kernel == plain  {label}: {len(isls)} island(s), "
           f"{sum(i.schedule.grid for i, _ in isls)} band step(s), "
-          f"max_abs_err {err}", flush=True)
+          f"max_abs_err {err}" + (f"; stages run in f32: {f32}"
+                                  if datapath == "narrow" else ""),
+          flush=True)
     return err
 
 
@@ -834,37 +866,50 @@ def trace_serving(pipe, types, params, imgs, card) -> None:
 
 
 def band_work(isls, nb: int):
-    """(bytes, operations) the islands need at batch `nb`: each island's
-    inputs read once and outputs written once, in their containers; per
-    output pixel of each stage, a multiply and an add per integer tap
-    and one op per arithmetic instruction of an expression program."""
+    """(bytes, [(operations, peak rate)]) the islands need at batch `nb`:
+    each island's inputs read once and outputs written once, in their
+    containers; per output pixel of each stage, a multiply and an add per
+    integer tap (at the float32 rate, the fastest outside the tensor
+    cores) and one op per arithmetic instruction of an expression
+    program (f64 programs at the card's f64 rate, f32 ones at the f32
+    rate)."""
     from repro_torch.kernels.stencil import kernel as K
-    moved = ops = 0
+    moved = int_ops = f64_ops = f32_ops = 0
     for _, enc in isls:
         for key in ("in_slot", "out_slot"):
             moved += sum(nb * d["H"] * d["W"] * d["esize"]
                          for _, d in enc.slots(key))
         for d in enc.rows():
+            px = nb * d["H"] * d["W"]
             if d["kind"] == K.KIND_INTLINEAR:
-                per = 2 * d["tap_count"]
+                int_ops += px * 2 * d["tap_count"]
             elif d["kind"] == K.KIND_EXPR:
                 code = enc.prog[d["prog_begin"]:d["prog_begin"]
                                 + d["prog_len"]]
-                per = int(sum(op not in (K.OP_REF, K.OP_CONST)
-                              for op in code[:, 0]))
-            else:
-                continue
-            ops += nb * d["H"] * d["W"] * per
-    return moved, ops
+                n = px * int(sum(op not in (K.OP_REF, K.OP_CONST)
+                                 for op in code[:, 0]))
+                if d["f32"]:
+                    f32_ops += n
+                else:
+                    f64_ops += n
+    return moved, [(int_ops, PEAK_OPS_PER_S), (f64_ops, F64_OPS_PER_S),
+                   (f32_ops, PEAK_OPS_PER_S)]
+
+
+# pipelines phase 2 times at the serving shape; the first three also in
+# the split (every tile in global memory, column tile 128)
+TIMED = ("usm", "hcd", "dus_ext", "of", "of_pyramid")
+SPLIT = ("usm", "hcd", "dus_ext")
 
 
 def band_kernel_times(dev, card, params) -> dict:
     """Phase 2's timing, at the serving shape 4x1080x1920: per pipeline
-    (usm, hcd, dus_ext) each island's column tiles, shared memory,
-    residency, registers and tile placement (none may be global); the
-    kernel's time warm and with the L2 flushed; its bound; the time with
-    every tile in global memory and at column tiles of 128 (the split);
-    and the plain version's time on USM."""
+    (`TIMED`) each island's column tiles, shared memory, residency,
+    registers and tile placement (none may be global); the kernel's time
+    warm and with the L2 flushed; its bound; for `SPLIT` the time with
+    every tile in global memory and at column tiles of 128; for of the
+    narrow lowering's time (its outputs equal the exact one's); and the
+    plain version's time on usm and of."""
     import torch
 
     from repro_torch.kernels.stencil import kernel as K
@@ -875,17 +920,21 @@ def band_kernel_times(dev, card, params) -> dict:
     flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
     places = ("shared", "global", "none")
     out = {}
-    for k, name in enumerate(("usm", "hcd", "dus_ext")):
-        lp, isls = islands(ALL[name](), load_types(name),
-                           params.get(name, {}), shape)
-        bufs = ingest(lp, frames(shape, 20 + k), dev)
+
+    def launcher(encs, bufs):
+        calls = [(K.fused_pipeline(e, i.schedule.grid, shape[0]),
+                  [bufs[n] for n in i.inputs]) for i, e in encs]
+        return lambda: [o for f, a in calls for o in f(*a)]
+
+    def describe(name, isls):
         for isl, enc in isls:
             occ = K.occupancy(enc, dev)
             items = shape[0] * isl.schedule.grid * enc.ntiles
             print(f"fused_band {name} island {isl.idx} "
                   f"{'x'.join(map(str, shape))} ({card}): column tile "
                   f"{enc.col_tile}, {enc.ntiles} column tiles, {items} "
-                  f"work items, {enc.smem_bytes} B shared a block, "
+                  f"work items, {len(isl.stages)} stages, "
+                  f"{enc.smem_bytes} B shared a block, "
                   f"{occ['blocks_per_sm']} blocks/SM x {occ['sms']} SMs "
                   f"(grid {K.launch_grid(enc, isl.schedule.grid, 4, dev)}"
                   f"), {occ['registers']} registers and "
@@ -897,48 +946,136 @@ def band_kernel_times(dev, card, params) -> dict:
                 d["place"] != K.PLACE_GLOBAL for d in enc.rows()), \
                 f"{name}: a 1080p tile in global memory"
 
-        def launcher(encs):
-            calls = [(K.fused_pipeline(e, i.schedule.grid, shape[0]),
-                      [bufs[n] for n in i.inputs]) for i, e in encs]
-            return lambda: [o for f, a in calls for o in f(*a)]
-
-        run = launcher(isls)
+    for k, name in enumerate(TIMED):
+        lp, isls = islands(ALL[name](), load_types(name),
+                           params.get(name, {}), shape)
+        bufs = ingest(lp, inputs(name, shape, 20 + 2 * k), dev)
+        describe(name, isls)
+        run = launcher(isls, bufs)
         want = run()
         ms = cuda_ms(run, 20)
         cold = cold_ms(run, 10, flush)
         moved, ops = band_work(isls, shape[0])
-        bound, bound_by = least_ms(moved, [(ops, PEAK_OPS_PER_S)])
+        bound, bound_by = least_ms(moved, ops)
         split = {}
         for label, opts in (("every tile in global memory",
                              {"smem_limit": 0}),
                             ("column tile 128", {"col_tile": 128})):
+            if name not in SPLIT:
+                break
             # the same column tiles as the default, unless asked
             other = launcher([(i, K.encode_program(
                 island_program(lp, i), **{
                     "col_tile": e.col_tile or max(d["W"] for d in e.rows()),
                     **opts}))
-                for i, e in isls])
+                for i, e in isls], bufs)
             same(f"fused_band {name} {label}", other(), want)
             split[label] = cuda_ms(other, 10)
         print(f"fused_band {name} {'x'.join(map(str, shape))} ({card}): "
               f"kernel {ms:.4f} ms warm, {cold:.4f} ms with the L2 "
               f"flushed, bound {bound:.4f} ms ({bound_by}: {moved} B at "
-              f"{HBM_BYTES_PER_S:.3g} B/s, {ops} ops at "
-              f"{PEAK_OPS_PER_S:.3g}/s), {len(isls)} island(s); same "
-              f"kernel warm with "
-              + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()),
-              flush=True)
+              f"{HBM_BYTES_PER_S:.3g} B/s; integer, f64 and f32 ops "
+              f"{[n for n, _ in ops]} at {[r for _, r in ops]} /s), "
+              f"{len(isls)} island(s)" + (
+                  "; same kernel warm with " + ", ".join(
+                      f"{k_} {v:.4f} ms" for k_, v in split.items())
+                  if split else ""), flush=True)
         out[name] = {"ms": ms, "cold_ms": cold, "bound_ms": bound,
-                     "bound_by": bound_by, "split_ms": split}
-        if name == "usm":
+                     "bound_by": bound_by, "launches_per_batch": len(isls)}
+        if split:
+            out[name]["split_ms"] = split
+        if name == "of":
+            # the narrow lowering: f32 stages and int32-pair carriers;
+            # its outputs are the exact lowering's, bit for bit
+            nlp, nisls = islands(ALL[name](), load_types(name), {}, shape,
+                                 "narrow")
+            describe(f"{name} narrow", nisls)
+            narrow = launcher(nisls, bufs)
+            same(f"fused_band {name} narrow vs exact", narrow(), want)
+            n_ms = cuda_ms(narrow, 20)
+            n_cold = cold_ms(narrow, 10, flush)
+            n_moved, n_ops = band_work(nisls, shape[0])
+            n_bound, n_by = least_ms(n_moved, n_ops)
+            f32 = [n for n in nlp.order if nlp.stages[n].expr_dtype == "f32"
+                   and nlp.stages[n].kind == "expr"]
+            print(f"fused_band {name} narrow {'x'.join(map(str, shape))} "
+                  f"({card}): kernel {n_ms:.4f} ms warm, {n_cold:.4f} ms "
+                  f"with the L2 flushed (exact: {ms:.4f} / {cold:.4f}), "
+                  f"bound {n_bound:.4f} ms ({n_by}; ops {[n for n, _ in n_ops]}"
+                  f"), f32 stages {f32}; outputs == exact lowering",
+                  flush=True)
+            out[name]["narrow"] = {"ms": n_ms, "cold_ms": n_cold,
+                                   "bound_ms": n_bound, "f32_stages": f32}
+        if name in ("usm", "of"):
             (isl, enc), = isls
             plain = K.fused_pipeline_reference(enc, isl.schedule.grid,
                                                shape[0])
             ins = [bufs[n] for n in isl.inputs]
-            out[name]["plain_ms"] = cuda_ms(lambda: plain(*ins), 2)
-            print(f"fused_band usm plain version ({card}): "
+            out[name]["plain_ms"] = cuda_ms(lambda: plain(*ins),
+                                            2 if name == "usm" else 1)
+            print(f"fused_band {name} plain version ({card}): "
                   f"{out[name]['plain_ms']:.2f} ms; 1 launch per batch of "
                   f"4 = 0.25 launches per frame", flush=True)
+    return out
+
+
+def serve(pipe, types, params, requests, label, card, dev) -> dict:
+    """Serve `requests` (frames, or frame pairs) through `PipelineServer`
+    at batch 4 on the kernel, with the band kernel's launch count set to
+    0 just before and read just after; check every result against the
+    plain executor on the card; print frames/s and p50/p99 latency."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dsl.exec import run_fixed
+    from repro_torch.kernels.stencil import kernel as K
+    from repro_torch.serve import PipelineServer
+    n = len(requests)
+    lat = [0.0] * n
+    K.LAUNCHES["fused_band"] = 0
+    with PipelineServer(pipe, types, params, backend="cuda",
+                        batch_size=4, device=dev) as srv:
+        srv.warmup([FRAME])
+        t_start = time.perf_counter()
+        futs = []
+        for i, req in enumerate(requests):
+            t_sub = time.perf_counter()
+            fut = srv.submit(req)
+            fut.add_done_callback(
+                lambda f, i=i, t_sub=t_sub:
+                lat.__setitem__(i, time.perf_counter() - t_sub))
+            futs.append(fut)
+        results = [f.result(timeout=600) for f in futs]
+        t_end = time.perf_counter()
+    launches = K.LAUNCHES["fused_band"]
+    assert launches > 0, f"serving {label} never launched the kernel"
+    assert srv.stats["frames"] == n
+    for b in range(0, n, 4):
+        batch = requests[b:b + 4]
+        stacked = (tuple(np.stack(x) for x in zip(*batch))
+                   if isinstance(batch[0], tuple) else np.stack(batch))
+        want = run_fixed(pipe, stacked, types, params, backend="torch",
+                         device=dev)
+        for j in range(len(batch)):
+            for k, v in want.items():
+                got = results[b + j][k]
+                assert got.shape == FRAME and torch.isfinite(got).all()
+                if not torch.equal(got, v[j].cpu()):
+                    raise AssertionError(f"served {label} frame {b + j} "
+                                         f"stage {k} != plain executor")
+    lat_ms = sorted(x * 1e3 for x in lat)
+    out = {"fps": n / (t_end - t_start),
+           "p50_ms": float(np.percentile(lat_ms, 50)),
+           "p99_ms": float(np.percentile(lat_ms, 99)),
+           "launches": launches, "batches": srv.stats["batches"],
+           "padded": srv.stats["padded"]}
+    print(f"served {n} {label} {FRAME[0]}x{FRAME[1]} "
+          f"{'frame pairs' if isinstance(requests[0], tuple) else 'frames'}"
+          f" at batch 4 ({card}): {out['fps']:.2f} frames/s, p50 "
+          f"{out['p50_ms']:.2f} ms, p99 {out['p99_ms']:.2f} ms, "
+          f"{launches} kernel launches (warmup included), batches "
+          f"{out['batches']}, pad frames {out['padded']}, all equal to the "
+          f"plain executor", flush=True)
     return out
 
 
@@ -954,7 +1091,6 @@ def main() -> int:
     from repro_torch.kernels.stencil import kernel as K
     from repro_torch.pipelines import ALL, usm
     from repro_torch.pipelines.types import load_types
-    from repro_torch.serve import PipelineServer
 
     dev = torch.device("cuda")
     card = card_line()
@@ -977,6 +1113,16 @@ def main() -> int:
     err = max(err, check_islands("dus_ext 2x96x96 saturating phase plan",
                                  ALL["dus_ext"](), phase_design(), {},
                                  frames((2, 96, 96), 3), dev))
+    for k, name in enumerate(("of", "of_pyramid")):
+        err = max(err, check_islands(
+            f"{name} 2x{FRAME[0]}x{FRAME[1]} frame pairs", ALL[name](),
+            load_types(name), {}, inputs(name, (2,) + FRAME, 30 + 2 * k),
+            dev))
+    for k, name in enumerate(("of", "hcd", "usm")):
+        err = max(err, check_islands(
+            f"{name} 2x{FRAME[0]}x{FRAME[1]} narrow", ALL[name](),
+            load_types(name), params.get(name, {}),
+            inputs(name, (2,) + FRAME, 40 + 2 * k), dev, datapath="narrow"))
     assert K.LAUNCHES["fused_band"] > before, "the kernel never launched"
 
     flat = np.full((1,) + FRAME, 117.0)
@@ -986,6 +1132,15 @@ def main() -> int:
     assert torch.equal(out, torch.from_numpy(flat).to(dev)), \
         "USM changed a flat frame"
     print("known answer: USM leaves a flat 1080p frame unchanged", flush=True)
+    for name in ("of", "of_pyramid"):
+        zero = run_fixed(ALL[name](), (flat, flat), load_types(name),
+                         backend="cuda")
+        for k, v in zero.items():
+            assert v.shape == (1,) + FRAME and torch.isfinite(v).all()
+            assert torch.all(v == 0), f"{name}: nonzero flow {k} between " \
+                                      f"two equal flat frames"
+    print("known answer: two equal flat 1080p frames give zero optical flow "
+          "(of, of_pyramid)", flush=True)
 
     band = band_kernel_times(dev, card, params)
 
@@ -995,48 +1150,17 @@ def main() -> int:
     # -- 3. serving: the main path ----------------------------------------
     n_frames = 16
     imgs = [frames(FRAME, 100 + i) for i in range(n_frames)]
-    K.LAUNCHES["fused_band"] = 0
-    lat = [0.0] * n_frames
-    with PipelineServer(usm.build(), load_types("usm"), params["usm"],
-                        backend="cuda", batch_size=4) as srv:
-        srv.warmup([FRAME])
-        t_start = time.perf_counter()
-        futs = []
-        for i, img in enumerate(imgs):
-            t_sub = time.perf_counter()
-            fut = srv.submit(img)
-            fut.add_done_callback(
-                lambda f, i=i, t_sub=t_sub:
-                lat.__setitem__(i, time.perf_counter() - t_sub))
-            futs.append(fut)
-        results = [f.result(timeout=600) for f in futs]
-        t_end = time.perf_counter()
-    launches = K.LAUNCHES["fused_band"]
-    assert launches > 0, "serving never launched the kernel"
-    assert srv.stats["frames"] == n_frames
-    for b in range(0, n_frames, 4):
-        want = run_fixed(usm.build(), np.stack(imgs[b:b + 4]),
-                         load_types("usm"), params["usm"], backend="torch",
-                         device=dev)["masked"].cpu()
-        for j in range(4):
-            got = results[b + j]["masked"]
-            assert got.shape == FRAME and torch.isfinite(got).all()
-            if not torch.equal(got, want[j]):
-                raise AssertionError(f"served frame {b + j} != plain "
-                                     f"executor")
-    lat_ms = sorted(x * 1e3 for x in lat)
-    p50 = float(np.percentile(lat_ms, 50))
-    p99 = float(np.percentile(lat_ms, 99))
-    fps = n_frames / (t_end - t_start)
-    print(f"served {n_frames} usm {FRAME[0]}x{FRAME[1]} frames at batch 4 "
-          f"({card}): {fps:.2f} frames/s, p50 {p50:.2f} ms, p99 "
-          f"{p99:.2f} ms, {launches} kernel launches (warmup included), "
-          f"batches {srv.stats['batches']}, pad frames "
-          f"{srv.stats['padded']}, all equal to the plain executor",
-          flush=True)
+    served = serve(usm.build(), load_types("usm"), params["usm"], imgs,
+                   "usm", card, dev)
+    launches = served["launches"]
 
     # -- 3b. one traced serving pass: device busy share and its split -----
     trace_serving(usm.build(), load_types("usm"), params["usm"], imgs, card)
+
+    # -- 3c. serving optical flow: frame pairs ----------------------------
+    flow = serve(ALL["of"](), load_types("of"), {},
+                 [inputs("of", FRAME, 200 + 2 * i) for i in range(n_frames)],
+                 "of", card, dev)
 
     # -- 4. result lines ---------------------------------------------------
     usm_t = band["usm"]
@@ -1049,7 +1173,8 @@ def main() -> int:
         "bound_by": usm_t["bound_by"], "library_ms": None,
         "cold_ms": usm_t["cold_ms"],
         "pipelines": {n: {k: v for k, v in t.items() if k != "split_ms"}
-                      for n, t in band.items()}}] + library_rows}))
+                      for n, t in band.items()},
+        "serving": {"usm": served, "of": flow}}] + library_rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,7 @@
 """Variable-width fixed-point data types — paper §III-A.
 
-The port's own copy of `FixedPointType` and `alpha_for_range` from
-`repro.core.fixedpoint`; the array ops there (quantize, saturating
-arithmetic) are not ported yet.
+The port's own copy of `repro.core.fixedpoint`: the type,
+`alpha_for_range`, and the bit-accurate array ops on torch tensors.
 
 A fixed-point type is a tuple (alpha, beta): `alpha` integral bits, `beta`
 fractional bits (total width alpha+beta).  Signed types use two's complement,
@@ -19,6 +18,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
+
+import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,3 +99,85 @@ def alpha_for_range(lo: float, hi: float) -> int:
         a_pos = _clog2(math.floor(abs(hi)) + 1) if hi > 0 else 0
         return max(a_neg, a_pos) + 1
     return max(_clog2(math.floor(hi) + 1), 1)
+
+
+# ---------------------------------------------------------------------------
+# Bit-accurate fixed-point emulation ops, on torch tensors.
+#
+# Representation: "qvalue" = the scaled integer round(x * 2^beta), carried in
+# int64.  All ops saturate.
+# ---------------------------------------------------------------------------
+
+def quantize(x: torch.Tensor, t: FixedPointType) -> torch.Tensor:
+    """float -> int64 qvalue: round-half-even in f64, then saturation.
+
+    `x` is taken to f64 first, whatever its dtype: the reference rounds
+    in x's own dtype, which for an f32 `x` at JAX's default x32 can
+    round a tie the other way (ROADMAP, the reference's standing
+    failures); here the product ``x * 2^beta`` is always the f64 one."""
+    q = torch.round(x.to(torch.float64) * (2.0 ** t.beta))
+    q = torch.clamp(q, float(t.int_min), float(t.int_max))
+    return q.to(torch.int64)
+
+
+def dequantize(q: torch.Tensor, t: FixedPointType) -> torch.Tensor:
+    """qvalue -> float: f64 for int64 qvalues, f32 for narrower ones."""
+    dt = torch.float64 if q.dtype == torch.int64 else torch.float32
+    return q.to(dt) * (2.0 ** -t.beta)
+
+
+def fix_round(x: torch.Tensor, t: FixedPointType) -> torch.Tensor:
+    """Round a float tensor onto the (alpha, beta) grid with saturation,
+    in x's dtype: quantize then dequantize, without leaving floats."""
+    step = 2.0 ** t.beta
+    q = torch.round(x * step)
+    q = torch.clamp(q, float(t.int_min), float(t.int_max))
+    return q / step
+
+
+def saturating_add(qa: torch.Tensor, qb: torch.Tensor,
+                   t: FixedPointType) -> torch.Tensor:
+    return torch.clamp(qa + qb, t.int_min, t.int_max)
+
+
+def saturating_sub(qa: torch.Tensor, qb: torch.Tensor,
+                   t: FixedPointType) -> torch.Tensor:
+    return torch.clamp(qa - qb, t.int_min, t.int_max)
+
+
+def saturating_mul(qa: torch.Tensor, qb: torch.Tensor, ta: FixedPointType,
+                   tb: FixedPointType, tout: FixedPointType) -> torch.Tensor:
+    """(a * 2^ba) * (b * 2^bb) = ab * 2^(ba+bb); rescaled to tout.beta
+    with round-half-UP on the dropped bits (the cheap FPGA rounding, as
+    the reference's)."""
+    prod = qa * qb                       # exact in int64
+    shift = ta.beta + tb.beta - tout.beta
+    if shift > 0:
+        prod = (prod + (1 << (shift - 1))) >> shift
+    elif shift < 0:
+        prod = prod << (-shift)
+    return torch.clamp(prod, tout.int_min, tout.int_max)
+
+
+def apply_fixed(x: torch.Tensor, t: Optional[FixedPointType]
+                ) -> torch.Tensor:
+    """Snap to the type's grid; None keeps the float (the float design)."""
+    if t is None:
+        return x
+    return fix_round(x, t)
+
+
+def quant_error_bound(t: FixedPointType) -> float:
+    """Max rounding error introduced by one snap: half a resolution step."""
+    return 0.5 * t.resolution
+
+
+def storage_bits(t: Optional[FixedPointType]) -> int:
+    """Bits per stored element (float reference = 32)."""
+    return 32 if t is None else t.width
+
+
+def np_quantize(x: np.ndarray, t: FixedPointType) -> np.ndarray:
+    """NumPy twin of `quantize` for oracles in tests."""
+    q = np.rint(x * (2.0 ** t.beta))
+    return np.clip(q, t.int_min, t.int_max).astype(np.int64)

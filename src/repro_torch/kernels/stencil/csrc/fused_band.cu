@@ -88,11 +88,18 @@
 //  * snap_expr: float-stored stages snap clip(rint(raw*2^b))/2^b; stages
 //    whose phases mix betas build the per-residue float composite;
 //    otherwise rint(raw*2^b), clip, integer store.
+//  * f32 expression stages (F_F32: lowering.ir._expr_fits_f32 proved
+//    every op exact in f32, under datapath="narrow") run the same
+//    program on a float stack, as the reference's `dequant_f32` path
+//    does: a tap is (float)q * (float)2^-b, a constant the f32 value the
+//    encoder baked, every op in f32, then rintf(raw * (float)2^b) and
+//    the clip in f32.  The f64 path is the same template at double.
 //  * No FMA contraction: built with --fmad=false, so `a*b + c` rounds
 //    twice as numpy does (HCD's harris = det - k*trace^2 sits on rint ties).
 //  * rint() is round-half-even; numpy's minimum/maximum propagate NaN
 //    where fmin/fmax drop it, so they are written out; x**2 is x*x;
-//    `/` and sqrt are IEEE-rounded in double.
+//    `/` and sqrt are IEEE-rounded in double and in float (no
+//    --use_fast_math; -prec-div and -prec-sqrt keep their defaults).
 //  * Containers: loads decode the code-selected container (u8 ... i64,
 //    f64); stores cast after the clip, into tiles and outputs alike, so
 //    a narrow tile is lossless.  Output rows >= H and columns >= W (the
@@ -112,7 +119,7 @@ enum Field {
   F_INT_MIN, F_INT_MAX, F_PH_BEGIN, F_PH_COUNT, F_MY, F_MX,
   F_PROG_BEGIN, F_PROG_LEN, F_SNAP, F_FBASE,
   F_CSTEP, F_CLO, F_CW, F_PLACE, F_TILE_OFF, F_PITCH, F_ESIZE,
-  F_RES_BEGIN, F_RRES, F_CRES, F_ACC32,
+  F_RES_BEGIN, F_RRES, F_CRES, F_ACC32, F_F32,
   NF
 };
 // FIELDS-END
@@ -172,11 +179,21 @@ __device__ __forceinline__ int64_t clampl(int64_t v, int64_t lo,
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-__device__ __forceinline__ double clampd(double v, double lo, double hi) {
+template <typename F>
+__device__ __forceinline__ F clampd(F v, F lo, F hi) {
   // jnp.clip / np.clip: max then min, NaN passes through
   v = (v < lo) ? lo : v;
   return (v > hi) ? hi : v;
 }
+
+// the expression ops at each width: the float overloads are the f32
+// instructions, correctly rounded
+__device__ __forceinline__ double rint_(double x) { return rint(x); }
+__device__ __forceinline__ float rint_(float x) { return rintf(x); }
+__device__ __forceinline__ double sqrt_(double x) { return sqrt(x); }
+__device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
+__device__ __forceinline__ double fabs_(double x) { return fabs(x); }
+__device__ __forceinline__ float fabs_(float x) { return fabsf(x); }
 
 __device__ __forceinline__ int64_t rhe_shift(int64_t p, int64_t t) {
   if (t <= 0) return p * ((int64_t)1 << (-t));
@@ -480,23 +497,28 @@ struct Block {
                         qmin, qmax);
       } else {
         double q = rint((double)acc[m] * cscale);
-        out[m] = (int64_t)clampd(q, (double)qmin, (double)qmax);
+        out[m] = (int64_t)clampd<double>(q, (double)qmin, (double)qmax);
       }
     }
   }
 
   __device__ __forceinline__ double snap_float(double raw,
                                                const double* f) const {
-    return clampd(rint(raw * f[FC_STEP]), f[FC_MIN], f[FC_MAX]) /
+    return clampd<double>(rint(raw * f[FC_STEP]), f[FC_MIN], f[FC_MAX]) /
            f[FC_STEP];
   }
 
   // an expression stage at a quad: the postfix program runs once on a
   // register stack of MAX_STACK entries per pixel (s[0] the top; a push
-  // shifts down, a pop shifts up, so every index is static); returns the
-  // stored values (f64 bits for float-stored stages)
-  __device__ void expr(const int64_t* d, int r, int c0, int64_t* out) const {
-    double s[MAX_STACK][PX];
+  // shifts down, a pop shifts up, so every index is static), in F (double,
+  // or float for an f32 stage); returns the stored values (f64 bits for
+  // float-stored stages, which are never f32 stages).  Inlined, as the
+  // one instantiation was before there were two: a call would put the
+  // quad's `out` in local memory
+  template <typename F>
+  __device__ __forceinline__ void expr(const int64_t* d, int r, int c0,
+                                       int64_t* out) const {
+    F s[MAX_STACK][PX];
     int64_t v[PX];
     const int64_t* ins = prog + d[F_PROG_BEGIN] * TAPW;
     for (int k = 0; k < d[F_PROG_LEN]; ++k, ins += TAPW) {
@@ -507,7 +529,7 @@ struct Block {
 #pragma unroll
           for (int m = 0; m < PX; ++m) s[j][m] = s[j - 1][m];
         if (op == OP_CONST) {
-          double x = fc[ins[1]];
+          F x = (F)fc[ins[1]];
 #pragma unroll
           for (int m = 0; m < PX; ++m) s[0][m] = x;
           continue;
@@ -515,25 +537,26 @@ struct Block {
         gather(ins + 1, r, c0, v);
         if (ins[7] == 7) {          // a float-stored parent
 #pragma unroll
-          for (int m = 0; m < PX; ++m) s[0][m] = __longlong_as_double(v[m]);
+          for (int m = 0; m < PX; ++m)
+            s[0][m] = (F)__longlong_as_double(v[m]);
         } else {
-          double inv = fc[stage((int)ins[1])[F_FBASE] + FC_INV_STEP];
+          F inv = (F)fc[stage((int)ins[1])[F_FBASE] + FC_INV_STEP];
 #pragma unroll
-          for (int m = 0; m < PX; ++m) s[0][m] = (double)v[m] * inv;
+          for (int m = 0; m < PX; ++m) s[0][m] = (F)v[m] * inv;
         }
         continue;
       }
 #define EACH(expr_)                                  \
   _Pragma("unroll") for (int m = 0; m < PX; ++m) {   \
-    double a = s[1][m], b = s[0][m];                 \
+    F a = s[1][m], b = s[0][m];                      \
     (void)a;                                         \
     s[0][m] = (expr_);                               \
   }                                                  \
   break;
       switch (op) {
         case OP_SQR: EACH(b * b)
-        case OP_ABS: EACH(fabs(b))
-        case OP_SQRT: EACH(sqrt(b))
+        case OP_ABS: EACH(fabs_(b))
+        case OP_SQRT: EACH(sqrt_(b))
         case OP_ADD: EACH(a + b)
         case OP_SUB: EACH(a - b)
         case OP_MUL: EACH(a * b)
@@ -541,11 +564,11 @@ struct Block {
         // NaN-propagating, as numpy.minimum / numpy.maximum
         case OP_MIN: EACH((a != a || a < b) ? a : b)
         case OP_MAX: EACH((a != a || a > b) ? a : b)
-        case OP_LT: EACH((a < b) ? 1.0 : 0.0)
-        case OP_LE: EACH((a <= b) ? 1.0 : 0.0)
-        case OP_GT: EACH((a > b) ? 1.0 : 0.0)
-        case OP_GE: EACH((a >= b) ? 1.0 : 0.0)
-        default: EACH((s[2][m] != 0.0) ? a : b)   // OP_SELECT
+        case OP_LT: EACH((a < b) ? (F)1 : (F)0)
+        case OP_LE: EACH((a <= b) ? (F)1 : (F)0)
+        case OP_GT: EACH((a > b) ? (F)1 : (F)0)
+        case OP_GE: EACH((a >= b) ? (F)1 : (F)0)
+        default: EACH((s[2][m] != (F)0) ? a : b)   // OP_SELECT
       }
 #undef EACH
       if (op == OP_SQR || op == OP_ABS || op == OP_SQRT) continue;
@@ -561,9 +584,9 @@ struct Block {
     int snap = (int)d[F_SNAP];
 #pragma unroll
     for (int m = 0; m < PX; ++m) {
-      double raw = s[0][m];
+      F raw = s[0][m];
       switch (snap) {
-        case SNAP_RAW: out[m] = __double_as_longlong(raw); break;
+        case SNAP_RAW: out[m] = __double_as_longlong((double)raw); break;
         case SNAP_FLOAT:
           out[m] = __double_as_longlong(snap_float(raw, f));
           break;
@@ -576,8 +599,8 @@ struct Block {
         default: {
           int64_t qmin, qmax;
           bounds(d, r, c0 + m, &qmin, &qmax);
-          double q = rint(raw * f[FC_STEP]);
-          out[m] = (int64_t)clampd(q, (double)qmin, (double)qmax);
+          F q = rint_(raw * (F)f[FC_STEP]);
+          out[m] = (int64_t)clampd<F>(q, (F)qmin, (F)qmax);
         }
       }
     }
@@ -621,7 +644,7 @@ struct Block {
     int code = (int)d[F_CODE], es = (int)d[F_ESIZE];
     int pitch = (int)d[F_PITCH];
     int row0 = it.i * step + lo, col0 = it.j * cstep + clo;
-    bool lin = d[F_KIND] == KIND_INTLINEAR;
+    bool lin = d[F_KIND] == KIND_INTLINEAR, f32 = d[F_F32] != 0;
     char* tile = sbase[s];
     char* out = d[F_OUT_SLOT] < 0
                     ? nullptr
@@ -636,8 +659,10 @@ struct Block {
       int64_t v[PX];
       if (lin)
         intlinear(d, r, c0, v);
+      else if (f32)
+        expr<float>(d, r, c0, v);
       else
-        expr(d, r, c0, v);
+        expr<double>(d, r, c0, v);
       if (tile) put(tile + r * pitch, code, c0, 0, CW - c0, v);
       int orow = r + lo, grow = row0 + r;
       if (out && orow >= 0 && orow < step && grow < H)

@@ -54,7 +54,7 @@ FIELDS = ("kind", "step", "lo", "L", "H", "W", "sy", "sx", "uy", "ux",
           "int_min", "int_max", "ph_begin", "ph_count", "my", "mx",
           "prog_begin", "prog_len", "snap", "fbase",
           "cstep", "clo", "CW", "place", "tile_off", "pitch", "esize",
-          "res_begin", "rres", "cres", "acc32")
+          "res_begin", "rres", "cres", "acc32", "f32")
 NF = len(FIELDS)
 # the launch's scalars, in the order of the kernel's `Layout` enum
 LAYOUT = ("n_meta", "o_stages", "o_taps", "o_phases", "o_prog", "o_rmaps",
@@ -459,7 +459,10 @@ def encode_program(program: Sequence[Dict], col_tile: Optional[int] = None,
         if ls.kind == "intlinear":
             # acc32: the lowering proved every partial sum (and a dyadic
             # finish) fits int32 (`lowering.ir._plan_intlinear`), so the
-            # kernel may accumulate in int32, bit-equal to int64
+            # kernel may accumulate in int32, bit-equal to int64.  An
+            # "int32pair" carrier (two int32 partial sums, narrow mode)
+            # accumulates in int64 here: its combined sum was proved
+            # below 2^53, so one int64 sum holds the same integer
             row.update(kind=KIND_INTLINEAR, tap_begin=len(taps),
                        tap_count=len(ls.int_taps), dyadic=int(ls.dyadic),
                        sm=ls.sm, t_shift=ls.t_shift,
@@ -467,22 +470,39 @@ def encode_program(program: Sequence[Dict], col_tile: Optional[int] = None,
             taps += [[index[tp.stage], tp.dy, tp.dx, tp.W, 0, 0, 0, 0]
                      for tp in ls.int_taps]
             continue
-        if ls.expr_dtype != "f64":
-            # narrow-mode f32 replay is a later slice of the port
+        if ls.expr_dtype not in ("f64", "f32"):
             raise LoweringError(
-                f"stage {d['name']!r}: the band kernel encodes f64 "
-                f"expression stages only, not {ls.expr_dtype!r}")
+                f"stage {d['name']!r}: the band kernel encodes f64 and f32 "
+                f"expression stages, not {ls.expr_dtype!r}")
         xp = _EmitXP(fconst)
 
         def ref(stage, dy, dx):
             return _Sym([(OP_REF, index[stage], dy, dx)], fconst)
 
+        first_const = len(fconst)
         code = _lift(B.eval_expr(st.expr, ref, d["params"], xp, xp.where),
                      fconst).code
         if _stack_depth(code) > MAX_STACK:
             raise LoweringError(
                 f"stage {d['name']!r}: expression needs a stack deeper "
                 f"than {MAX_STACK}")
+        if ls.expr_dtype == "f32":
+            # narrow mode proved f32 evaluation exact
+            # (`lowering.ir._expr_fits_f32`): the reference's Pallas
+            # kernel reads each tap as `dequant_f32` (f32(q) * f32(2^-b))
+            # and meets each Python constant of `eval_expr` as a weak
+            # scalar, i.e. rounded to f32.  The constants this stage
+            # emitted are baked rounded so (still f64 words in `fconst`,
+            # which the kernel converts exactly).
+            for k in range(first_const, len(fconst)):
+                fconst[k] = float(np.float32(fconst[k]))
+            if any(c[0] == OP_REF and program[c[1]]["dtype"] ==
+                   torch.float64 for c in code) or ls.t is None \
+                    or ls.store_float or ls.phase is not None:
+                raise LoweringError(
+                    f"stage {d['name']!r}: an f32 stage reads only "
+                    f"integer-stored taps and snaps onto one integer grid")
+            row["f32"] = 1
         if ls.t is None:
             snap = B.SNAP_RAW
         elif ls.phase is not None and not ls.phase.int_ok:
@@ -699,18 +719,23 @@ def eval_band_reference(enc: EncodedProgram, inputs: Sequence[torch.Tensor],
                                           d["t_shift"], fc[fb + FC_CSCALE],
                                           qmin, qmax)
             continue
+        # an f32 stage runs every op in f32: taps dequantized as
+        # f32(q) * f32(2^-beta), f32 constants, the snap on the f32 raw
+        # value (`backends.snap_expr`), as the reference's `dequant_f32`
+        # path; the rest in f64
+        fdt = torch.float32 if d["f32"] else torch.float64
         stack: List[torch.Tensor] = []
         for op, a, b_, c, *_ in prog[d["prog_begin"]:d["prog_begin"]
                                      + d["prog_len"]]:
             if op == OP_REF:
                 v = gather(a, b_, c)
                 if not rows[a]["is_float"]:
-                    v = v.to(torch.float64) * fc[rows[a]["fbase"]
-                                                 + FC_INV_STEP]
+                    v = v.to(fdt) * torch.tensor(
+                        fc[rows[a]["fbase"] + FC_INV_STEP], dtype=fdt,
+                        device=dev)
                 stack.append(v)
             elif op == OP_CONST:
-                stack.append(torch.tensor(fc[a], dtype=torch.float64,
-                                          device=dev))
+                stack.append(torch.tensor(fc[a], dtype=fdt, device=dev))
             elif op in (OP_SQR, OP_ABS, OP_SQRT):
                 x = stack.pop()
                 stack.append(x * x if op == OP_SQR else
@@ -723,7 +748,7 @@ def eval_band_reference(enc: EncodedProgram, inputs: Sequence[torch.Tensor],
             else:
                 y, x = stack.pop(), stack.pop()
                 stack.append(_BINARY[op](x, y))
-        raw = stack.pop().to(torch.float64).expand(nb, L, CW)
+        raw = stack.pop().to(fdt).expand(nb, L, CW)
         entries = [(ry, rx, lo, hi, fc[f]) for ry, rx, lo, hi, f in res]
         if d["snap"] == B.SNAP_MIXED:
             entries = [(ry, rx, fc[f + FC_MIN], fc[f + FC_MAX], fc[f])

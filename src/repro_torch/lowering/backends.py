@@ -1,31 +1,46 @@
-"""Datapath rules of the fused executor, in torch.
+"""Datapath rules and the whole-frame executors, in torch.
 
-Port of the datapath helpers of `repro.lowering.backends` and of
-`repro.dsl.exec.eval_expr`.  The reference helpers take a
-`LoweredStage` and build jnp closures; here the rules take the plain
-numbers the band kernel's encoded tables carry
+Port of `repro.lowering.backends` and of `repro.dsl.exec.eval_expr`.
+The reference helpers take a `LoweredStage` and build jnp closures; here
+the rules take the plain numbers the band kernel's encoded tables carry
 (`repro_torch.kernels.stencil.kernel.encode_program`), because the plain
 version of the kernel walks those tables.  The CUDA kernel
 (`kernels/stencil/csrc/fused_band.cu`) transcribes the same rules.
 
-Every integer tile here is carried in int64 and every float tile in
-f64.  That is bit-equal to the reference's int32 / int32-pair carriers:
-`lowering.ir._plan_intlinear` elects those only after proving that no
-partial sum overflows them, so the wider sum holds the same integer.
-Narrow containers (uint8 ... uint32) are storage only: values are
-clipped in the carrier and cast into the container last.
+Two executors over a `LoweredPipeline` live here, each returning the
+stages it is asked for as f64 tensors:
+
+  * `compile_interp` — the per-stage f64 walk (`dsl.exec._run_concrete`,
+    the port of the reference's numpy oracle), a batch as a loop over
+    images;
+  * `compile_lowered` — one whole-frame program (the counterpart of the
+    reference's `compile_jnp`): integer multiply-accumulates for the
+    linear stages, the expression tree on dequantized operands for the
+    rest (in f32 where narrow mode elected it), a batch in one pass.
+
+Neither is a kernel in the reference, so plain PyTorch is their port.
+
+Every integer tile here is carried in int64 and every float tile in f64
+(f32 for an f32 expression stage's values).  That is bit-equal to the
+reference's int32 / int32-pair carriers: `lowering.ir._plan_intlinear`
+elects those only after proving that no partial sum overflows them, so
+the wider sum holds the same integer.  Narrow containers (uint8 ...
+uint32) are storage only: values are clipped in the carrier and cast
+into the container last.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.fixedpoint import FixedPointType
 from repro_torch.core.graph import (BinOp, Call, Cmp, Const, Expr, ParamRef,
                                     Pow, Ref, Select)
 from repro_torch.core.policy import legalize
-from repro_torch.lowering.ir import LoweredPipeline, LoweredStage
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.lowering.ir import LoweredPipeline, LoweredStage, LoweringError
 
 Executor = Callable[..., Dict[str, torch.Tensor]]
 
@@ -207,6 +222,14 @@ def dequant(ls: LoweredStage, tile: torch.Tensor) -> torch.Tensor:
     return tile.to(torch.float64) * (2.0 ** -ls.t.beta)
 
 
+def dequant_f32(ls: LoweredStage, tile: torch.Tensor) -> torch.Tensor:
+    """Stored tile -> the exact f32 stage value (narrow-mode f32 stages):
+    f32(q) * f32(2^-beta), exact because `lowering.ir._expr_fits_f32`
+    bounds |q| below 2^24 and the rescale is a power of two."""
+    return tile.to(torch.float32) * torch.tensor(
+        2.0 ** -ls.t.beta, dtype=torch.float32, device=tile.device)
+
+
 def needed_stages(lp: LoweredPipeline, outputs: Sequence[str]) -> List[str]:
     """Ancestors of `outputs` in topo order (prune dead stages)."""
     need = set()
@@ -274,3 +297,260 @@ def eval_expr(e: Expr, ref: Callable, params: Dict[str, float], xp, where):
         raise TypeError(type(n))
 
     return go(e)
+
+
+# ---------------------------------------------------------------------------
+# whole-frame evaluation of an expression tree on tensors
+# ---------------------------------------------------------------------------
+
+class _Val:
+    """A tensor as `eval_expr` sees it.  A Python number it meets becomes
+    a 0-dim f64 tensor: then ``2.0 / x`` is one correctly rounded
+    division (torch's reflected ``/`` is a reciprocal and a multiply),
+    and an f32 tensor meets the number rounded to f32, as a weak scalar
+    meets an f32 array in the reference.  Constant subtrees stay Python
+    numbers, folded in Python's doubles as the oracle folds them."""
+    __slots__ = ("t",)
+
+    def __init__(self, t: torch.Tensor):
+        self.t = t
+
+    def _o(self, o) -> torch.Tensor:
+        if isinstance(o, _Val):
+            return o.t
+        return torch.tensor(o, dtype=torch.float64, device=self.t.device)
+
+    def __add__(self, o): return _Val(torch.add(self.t, self._o(o)))
+    def __radd__(self, o): return _Val(torch.add(self._o(o), self.t))
+    def __sub__(self, o): return _Val(torch.sub(self.t, self._o(o)))
+    def __rsub__(self, o): return _Val(torch.sub(self._o(o), self.t))
+    def __mul__(self, o): return _Val(torch.mul(self.t, self._o(o)))
+    def __rmul__(self, o): return _Val(torch.mul(self._o(o), self.t))
+    def __truediv__(self, o): return _Val(torch.div(self.t, self._o(o)))
+    def __rtruediv__(self, o): return _Val(torch.div(self._o(o), self.t))
+    # a reflected comparison (``2.0 < v``) arrives as ``v > 2.0``
+    def __lt__(self, o): return _Val(torch.lt(self.t, self._o(o)))
+    def __le__(self, o): return _Val(torch.le(self.t, self._o(o)))
+    def __gt__(self, o): return _Val(torch.gt(self.t, self._o(o)))
+    def __ge__(self, o): return _Val(torch.ge(self.t, self._o(o)))
+
+    def __pow__(self, n):
+        # numpy's ``x ** 2`` on floats is ``x * x`` (np.square)
+        return _Val(self.t * self.t if n == 2 else torch.pow(self.t, n))
+
+
+class _TorchXP:
+    """The `xp` namespace (and `where`) `eval_expr` calls on `_Val`s."""
+
+    def __init__(self, dtype: torch.dtype, device: torch.device):
+        self.dtype, self.device = dtype, device
+
+    def _t(self, x) -> torch.Tensor:
+        if isinstance(x, _Val):
+            return x.t
+        return torch.tensor(x, dtype=self.dtype, device=self.device)
+
+    def abs(self, x): return _Val(torch.abs(self._t(x)))
+    def sqrt(self, x): return _Val(torch.sqrt(self._t(x)))
+    # numpy's minimum/maximum propagate NaN, and so do torch's
+    def minimum(self, a, b): return _Val(torch.minimum(self._t(a), self._t(b)))
+    def maximum(self, a, b): return _Val(torch.maximum(self._t(a), self._t(b)))
+
+    def where(self, c, a, b):
+        cond = self._t(c)
+        if cond.dtype != torch.bool:
+            cond = cond != 0
+        return _Val(torch.where(cond, self._t(a), self._t(b)))
+
+
+def eval_tensor_expr(e: Expr, tap: Callable[[str, int, int], torch.Tensor],
+                     params: Dict[str, float], dtype: torch.dtype,
+                     shape: Sequence[int], device) -> torch.Tensor:
+    """`eval_expr` on tensors: `tap(stage, dy, dx)` gives a Ref's values
+    (in `dtype`); returns the stage's raw values, broadcast to `shape`."""
+    xp = _TorchXP(dtype, torch.device(device))
+    out = eval_expr(e, lambda st, dy, dx: _Val(tap(st, dy, dx)), params,
+                    xp, xp.where)
+    return xp._t(out).to(dtype).expand(*shape)
+
+
+def edge_pad(a: torch.Tensor, hy: int, hx: int) -> torch.Tensor:
+    """Edge-replicate padding of the last two dimensions (any dtype)."""
+    H, W = a.shape[-2:]
+    dev = a.device
+    if hy:
+        rows = torch.clamp(torch.arange(-hy, H + hy, device=dev), 0, H - 1)
+        a = a.index_select(-2, rows)
+    if hx:
+        cols = torch.clamp(torch.arange(-hx, W + hx, device=dev), 0, W - 1)
+        a = a.index_select(-1, cols)
+    return a
+
+
+def upsample_pad(a: torch.Tensor, upsample: Tuple[int, int],
+                 halo: Tuple[int, int]) -> torch.Tensor:
+    """The oracle's `_pad_inputs` for one input: nearest-expand by the
+    stage's upsampling factors, then edge-pad by its halo."""
+    uy, ux = upsample
+    if uy > 1:
+        a = a.repeat_interleave(uy, dim=-2)
+    if ux > 1:
+        a = a.repeat_interleave(ux, dim=-1)
+    return edge_pad(a, *halo)
+
+
+def _to_tensor(x, device: torch.device) -> torch.Tensor:
+    x = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+    return x.to(device)
+
+
+# ---------------------------------------------------------------------------
+# the per-stage oracle walk, as an executor
+# ---------------------------------------------------------------------------
+
+def compile_interp(lp: LoweredPipeline,
+                   outputs: Optional[Sequence[str]] = None,
+                   device: DeviceLike = None) -> Executor:
+    """The per-stage f64 walk (`dsl.exec._run_concrete`) as an executor:
+    the port's oracle, the counterpart of the reference's numpy one.
+
+    Batched ``(B, H, W)`` input runs as a loop over images, the
+    definition the batched executors are held to.  A frame in its input
+    stage's container dtype is pre-quantized: it dequantizes to the
+    on-grid value the walk's own input snap reproduces."""
+    from repro_torch.dsl.exec import _run_concrete
+    dev = resolve_device(device)
+    outs = list(outputs or lp.pipeline.outputs)
+    phase_types = {n: (ls.phase.lattice, dict(ls.phase.types))
+                   for n, ls in lp.stages.items() if ls.phase is not None}
+
+    def one(image):
+        env = _run_concrete(lp.pipeline, image, dict(lp.params), lp.types,
+                            phase_types=phase_types or None, device=dev)
+        return {k: env[k] for k in outs}
+
+    def to_f64(im, n):
+        x = _to_tensor(im, dev)
+        ls = lp.stages[n]
+        if ls.t is not None and x.dtype == store_dtype(ls):
+            return x.to(torch.float64) * (2.0 ** -ls.t.beta)
+        return x.to(torch.float64)
+
+    def run(image):
+        imgs, names = normalize_images(lp, image)
+        arrs = [to_f64(im, n) for im, n in zip(imgs, names)]
+        if all(a.ndim == 3 for a in arrs):
+            per = [one(dict(zip(names, [a[b] for a in arrs])))
+                   for b in range(arrs[0].shape[0])]
+            return {k: torch.stack([p[k] for p in per]) for k in outs}
+        return one(dict(zip(names, arrs)))
+
+    run.lowered = lp
+    return run
+
+
+# ---------------------------------------------------------------------------
+# the whole-frame program (the reference's `compile_jnp`)
+# ---------------------------------------------------------------------------
+
+def compile_lowered(lp: LoweredPipeline,
+                    outputs: Optional[Sequence[str]] = None,
+                    device: DeviceLike = None) -> Executor:
+    """One whole-frame torch program with the oracle's padded geometry.
+
+    Integer linear stages run as int64 multiply-accumulates (the stride
+    folded into the tap slices) finished by `finish_intlinear`; every
+    other stage evaluates the oracle's expression tree (`eval_expr`) on
+    dequantized operands, in f32 where the lowering elected it
+    (`dequant_f32`), and snaps with `snap_expr`.  A ``(B, H, W)`` batch
+    runs as one program: every op is per pixel.  Returns
+    ``{stage: f64 tensor}`` for `outputs` (default: the pipeline's)."""
+    dev = resolve_device(device)
+    outs = list(outputs or lp.pipeline.outputs)
+    order = needed_stages(lp, outs)
+    params = dict(lp.params)
+
+    def residues(ls: LoweredStage, with_step: bool):
+        if ls.phase is None:
+            return ()
+        return [(ry, rx, t.int_min, t.int_max) +
+                ((2.0 ** t.beta,) if with_step else ())
+                for (ry, rx), t in sorted(ls.phase.types.items())]
+
+    def forward(img_of: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        tiles: Dict[str, torch.Tensor] = {}    # int64 grid or f64 values
+        vals: Dict[str, torch.Tensor] = {}     # f64 stage values
+        for name in order:
+            ls = lp.stages[name]
+            st = ls.stage
+            if st.is_input:
+                tile = ingest_input(img_of[name], ls)
+                tiles[name] = tile if ls.store_float else tile.to(torch.int64)
+                vals[name] = dequant(ls, tile)
+                continue
+            H, W = tiles[st.inputs[0]].shape[-2:]
+            H, W = H * st.upsample[0], W * st.upsample[1]
+            hy, hx = ls.halo
+            sy, sx = st.stride
+            Hs, Ws = -(-H // sy), -(-W // sx)
+            lead = tiles[st.inputs[0]].shape[:-2]
+            rows_abs = torch.arange(Hs, dtype=torch.int64, device=dev)
+            cols_abs = torch.arange(Ws, dtype=torch.int64, device=dev)
+            t = ls.t
+            if ls.kind == "intlinear":
+                padded = {i: upsample_pad(tiles[i], st.upsample, ls.halo)
+                          for i in st.inputs}
+                acc = accumulate_intlinear(
+                    [(tp.W, padded[tp.stage][..., hy + tp.dy:hy + tp.dy + H:sy,
+                                             hx + tp.dx:hx + tp.dx + W:sx])
+                     for tp in ls.int_taps],
+                    lambda: torch.zeros(lead + (Hs, Ws), dtype=torch.int64,
+                                        device=dev))
+                qmin, qmax = t.int_min, t.int_max
+                if ls.phase is not None:
+                    qmin, qmax = residue_bounds(
+                        ls.phase.lattice, residues(ls, False), rows_abs,
+                        cols_abs, qmin, qmax)
+                tiles[name] = finish_intlinear(acc, ls.dyadic, ls.sm,
+                                               ls.t_shift, ls.cscale, qmin,
+                                               qmax)
+            else:
+                f32 = ls.expr_dtype == "f32"
+                padded = {i: upsample_pad(
+                    dequant_f32(lp.stages[i], tiles[i]) if f32 else vals[i],
+                    st.upsample, ls.halo) for i in st.inputs}
+                fdt = torch.float32 if f32 else torch.float64
+                raw = eval_tensor_expr(
+                    st.expr, lambda s_, dy, dx: padded[s_][
+                        ..., hy + dy:hy + dy + H, hx + dx:hx + dx + W],
+                    params, fdt, lead + (H, W), dev)
+                raw = raw[..., ::sy, ::sx]
+                if t is None:
+                    mode, lo, hi, step = SNAP_RAW, 0, 0, 1.0
+                elif ls.phase is not None and not ls.phase.int_ok:
+                    mode = SNAP_MIXED
+                elif ls.store_float:
+                    mode = SNAP_FLOAT
+                else:
+                    mode = SNAP_INT
+                if t is not None:
+                    lo, hi, step = t.int_min, t.int_max, 2.0 ** t.beta
+                tiles[name] = snap_expr(
+                    raw, mode, step, lo, hi,
+                    ls.phase.lattice if ls.phase is not None else None,
+                    residues(ls, True), rows_abs, cols_abs)
+            vals[name] = dequant(ls, tiles[name])
+        return {k: vals[k] for k in outs}
+
+    def run(image):
+        imgs, names = normalize_images(lp, image)
+        xs = [_to_tensor(im, dev) for im in imgs]
+        if len({x.ndim for x in xs}) != 1 or xs[0].ndim not in (2, 3) \
+                or len({tuple(x.shape) for x in xs}) != 1:
+            raise LoweringError(f"images must all be (H, W) or all (B, H, W) "
+                                f"of one shape; got "
+                                f"{[tuple(x.shape) for x in xs]}")
+        return forward(dict(zip(names, xs)))
+
+    run.lowered = lp
+    return run

@@ -5,8 +5,8 @@ Port of `repro.lowering.pallas_backend` (`island_program`,
 a chain of band-kernel launches, one per rate island
 (`lowering.islands.partition_islands`).  Islands hand off through
 boundary buffers kept on the device in each boundary stage's legalized
-container (`backends.store_dtype`), and outputs are dequantized to f64
-on return.  Everything is bit-identical to the reference's numpy oracle
+container (`backends.store_dtype`), and the requested outputs (the
+pipeline's, or any stages named) are dequantized to f64 on return.  Everything is bit-identical to the reference's numpy oracle
 `repro.dsl.exec.run_fixed(backend="numpy")`.
 
 `compile_cuda(..., plain=False)` launches `kernels/stencil/csrc/
@@ -18,7 +18,7 @@ version, because the kernel wrapper dispatches on the tensors' device.
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,23 +52,32 @@ def island_program(lp: LoweredPipeline, isl: Island) -> List[Dict]:
         else:
             d.update(kind="compute", params=lp.params)
         program.append(d)
-    for out_slot, n in enumerate(isl.outputs):
+    # an input stage asked for as an output is stored already: the kernel
+    # writes only compute stages
+    for out_slot, n in enumerate(_written(lp, isl)):
         for d in program:
             if d["name"] == n:
                 d["out_slot"] = out_slot
     return program
 
 
+def _written(lp: LoweredPipeline, isl: Island) -> List[str]:
+    """The island's outputs the kernel writes, in its output slots."""
+    return [n for n in isl.outputs if not lp.stages[n].stage.is_input]
+
+
 def compile_cuda(lp: LoweredPipeline, device: DeviceLike = None,
-                 plain: bool = False) -> B.Executor:
+                 plain: bool = False,
+                 outputs: Optional[Sequence[str]] = None) -> B.Executor:
     """Shape-specialized executor: the island plan and its encoded
     programs are built (and cached) per input shape on first call.
 
     The executor takes an image as run_fixed does (array, tuple or
     dict; numpy or torch; (H, W) or (B, H, W)) and returns
-    ``{output stage: f64 tensor on the device}``."""
+    ``{stage: f64 tensor on the device}`` for each of `outputs`
+    (default: the pipeline's outputs), each an island output."""
     dev = resolve_device(device)
-    outs = list(lp.pipeline.outputs)
+    outs = list(outputs or lp.pipeline.outputs)
     order = B.needed_stages(lp, outs)
     input_names = [n for n in order if lp.stages[n].stage.is_input]
     kernel = fused_pipeline_reference if plain else fused_pipeline
@@ -76,7 +85,7 @@ def compile_cuda(lp: LoweredPipeline, device: DeviceLike = None,
     lock = threading.Lock()
 
     def build(shape) -> List[Tuple[Island, EncodedProgram]]:
-        plan = partition_islands(lp, tuple(shape[-2:]))
+        plan = partition_islands(lp, tuple(shape[-2:]), outputs=outs)
         return [(isl, encode_program(island_program(lp, isl)))
                 for isl in plan.islands]
 
@@ -109,7 +118,7 @@ def compile_cuda(lp: LoweredPipeline, device: DeviceLike = None,
             compiled = cache[shape]
         for isl, enc in compiled:
             call = kernel(enc, isl.schedule.grid, batch)
-            for n, arr in zip(isl.outputs,
+            for n, arr in zip(_written(lp, isl),
                               call(*[buffers[n] for n in isl.inputs])):
                 buffers[n] = arr
         return {n: B.dequant(lp.stages[n], buffers[n]) for n in outs}

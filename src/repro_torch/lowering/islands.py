@@ -81,10 +81,14 @@ def _ext_inputs(lp: LoweredPipeline, stages: Sequence[str]) -> List[str]:
     return out
 
 
-def partition_islands(lp: LoweredPipeline,
-                      in_shape: Tuple[int, int]) -> IslandPlan:
-    """Cut the lowered DAG into scheduled rate islands (always succeeds)."""
-    outs = list(lp.pipeline.outputs)
+def partition_islands(lp: LoweredPipeline, in_shape: Tuple[int, int],
+                      outputs: Optional[Sequence[str]] = None) -> IslandPlan:
+    """Cut the lowered DAG into scheduled rate islands (always succeeds).
+
+    `outputs` (default: the pipeline's outputs) are the stages stored
+    back to device memory; any stage may be one, and only its ancestors
+    are scheduled."""
+    outs = list(outputs or lp.pipeline.outputs)
     order = needed_stages(lp, outs)
     shapes = stage_shapes(lp, in_shape)
     inputs = [n for n in order if lp.stages[n].stage.is_input]

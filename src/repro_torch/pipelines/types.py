@@ -17,7 +17,9 @@ Data shape (the stage entries of `BitwidthPlan.to_json`)::
 A residue entry without "beta" takes its stage's beta, as
 `BitwidthPlan.phase_types` does; extra keys ("lo", "hi") are ignored.
 `types/<pipeline>_b4.json` hold the serving benchmark's designs (static
-interval alphas, beta 4 on every stage) for usm, hcd, dus and dus_ext.
+interval alphas, beta 4 on every stage) for usm, hcd, dus, dus_ext, of
+and of_pyramid.  A reference `BitwidthPlan` with several columns comes
+across whole as `repro_torch.analysis.plan.BitwidthPlan.from_json`.
 """
 from __future__ import annotations
 
@@ -91,6 +93,7 @@ def types_from_data(d: Dict) -> DesignTypes:
 
 def load_types(pipeline: str) -> DesignTypes:
     """The committed serving design of `pipeline` (usm, hcd, dus,
-    dus_ext): static interval alphas, beta 4 on every stage."""
+    dus_ext, of, of_pyramid): static interval alphas, beta 4 on every
+    stage."""
     path = TYPES_DIR / f"{pipeline}_b4.json"
     return types_from_data(json.loads(path.read_text()))

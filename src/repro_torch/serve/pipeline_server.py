@@ -46,13 +46,17 @@ class _Request:
 class PipelineServer:
     """Batched serving front end over one compiled executor.
 
-    ``backend`` is a port `run_fixed` backend (``"cuda"`` or
-    ``"torch"``).  ``batch_timeout_s`` bounds how long a partial batch
-    waits for more requests.  `stats` counts frames, batches and pad
-    frames.  Usable as a context manager; `close()` drains."""
+    ``backend`` is a port `run_fixed` backend (``"cuda"``, ``"torch"``,
+    ``"lowered"`` or ``"interp"``); ``column`` and ``datapath`` are
+    `run_fixed`'s.  A pipeline with several inputs (optical flow) takes
+    each request as a tuple or a dict of frames.  ``batch_timeout_s``
+    bounds how long a partial batch waits for more requests.  `stats`
+    counts frames, batches and pad frames.  Usable as a context manager;
+    `close()` drains."""
 
     def __init__(self, pipeline, types, params: Optional[dict] = None,
                  *, backend: str = "cuda", batch_size: int = 4,
+                 column: Optional[str] = None, datapath: str = "exact",
                  batch_timeout_s: float = 0.002,
                  device: DeviceLike = None):
         if batch_size < 1:
@@ -63,7 +67,8 @@ class PipelineServer:
         self.backend = backend
         self.device = resolve_device(device)
         self._executor = _exec.lowered_executor(
-            pipeline, types, dict(params or {}), backend, self.device)
+            pipeline, types, dict(params or {}), backend, self.device,
+            column, datapath)
         self._input_names = pipeline.input_stages()
         lp = self._executor.lowered
         self._ingest = [lp.stages[n] for n in self._input_names]

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from repro_torch.core.fixedpoint import FixedPointType, alpha_for_range
-from repro_torch.dsl.exec import run_fixed
+from repro_torch.dsl.exec import make_jitted_fixed, run_fixed
 from repro_torch.kernels.qdq import kernel as QD
 from repro_torch.kernels.qdq import ops as qdq_ops
 from repro_torch.kernels.qmatmul import kernel as QM
@@ -45,12 +45,21 @@ def _frames(shape, seed):
         np.float64)
 
 
-def _check(pipe, img, types, params, dev):
+def _inputs(name, shape, seed):
+    """One frame, or a pair for optical flow (seeds `seed`, `seed + 1`)."""
+    if name in ("of", "of_pyramid"):
+        return (_frames(shape, seed), _frames(shape, seed + 1))
+    return _frames(shape, seed)
+
+
+def _check(pipe, img, types, params, dev, datapath="exact"):
     before = K.LAUNCHES["fused_band"]
-    got = run_fixed(pipe, img, types, params, backend="cuda", device=dev)
+    got = run_fixed(pipe, img, types, params, backend="cuda",
+                    datapath=datapath, device=dev)
     torch.cuda.synchronize()
     assert K.LAUNCHES["fused_band"] > before
-    want = run_fixed(pipe, img, types, params, backend="torch", device=dev)
+    want = run_fixed(pipe, img, types, params, backend="torch",
+                     datapath=datapath, device=dev)
     assert sorted(got) == sorted(pipe.outputs)
     for k in got:
         assert got[k].device.type == "cuda"
@@ -63,15 +72,50 @@ CASES = [("usm", (48, 48)), ("hcd", (48, 48)), ("dus", (47, 48)),
          # two column tiles, the last one ragged
          ("usm", (2, 64, 200)),
          # tall single-tile islands whose inputs are read in place
-         ("dus_ext", (1, 601, 640))]
+         ("dus_ext", (1, 601, 640)),
+         # optical flow: two inputs, divisions, 30 and 19 stages in one
+         # island; odd shapes
+         ("of", (2, 48, 48)), ("of", (1, 47, 53)),
+         ("of_pyramid", (2, 48, 48)), ("of_pyramid", (1, 46, 61))]
 
 
 @pytest.mark.parametrize("name,shape", CASES,
                          ids=[f"{n}-{'x'.join(map(str, s))}"
                               for n, s in CASES])
 def test_kernel_equals_plain_version(cuda, name, shape):
-    _check(ALL[name](), _frames(shape, 5), load_types(name),
+    _check(ALL[name](), _inputs(name, shape, 5), load_types(name),
            PARAMS.get(name, {}), cuda)
+
+
+@pytest.mark.parametrize("name", list(ALL))
+def test_narrow_lowering_kernel_equals_plain_version(cuda, name):
+    """``datapath="narrow"``: f32 expression stages (hcd, of,
+    of_pyramid), int32 and int32-pair carriers, two column tiles."""
+    lp = lower(ALL[name](), load_types(name), params=PARAMS.get(name, {}),
+               datapath="narrow")
+    assert (name in ("hcd", "of", "of_pyramid")) == any(
+        ls.expr_dtype == "f32" for ls in lp.stages.values())
+    _check(ALL[name](), _inputs(name, (2, 64, 200), 9), load_types(name),
+           PARAMS.get(name, {}), cuda, datapath="narrow")
+
+
+def test_make_jitted_fixed_outputs_on_the_card(cuda):
+    """Intermediate stages as island outputs, on the kernel: equal to
+    the per-stage walk on the card."""
+    img = _inputs("of", (2, 56, 72), 11)
+    outs = ["Denom", "Common2", "Vy1", "Vx4"]
+    run = make_jitted_fixed(ALL["of"](), load_types("of"), {},
+                            outputs=outs, device=cuda)
+    before = K.LAUNCHES["fused_band"]
+    got = run(img)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fused_band"] > before
+    want = run_fixed(ALL["of"](), img, load_types("of"), backend="interp",
+                     device=cuda)
+    assert sorted(got) == sorted(outs)
+    for k in outs:
+        assert got[k].device.type == "cuda"
+        assert torch.equal(got[k], want[k]), k
 
 
 def test_saturating_phase_plan(cuda):

@@ -21,8 +21,8 @@ from repro_torch.dsl import exec as E
 from repro_torch.kernels.stencil import kernel as K
 from repro_torch.lowering import backends as pb
 from repro_torch.pipelines.types import types_from_data
-from test_torch_types import (BENCHES, IDS, frames, phase_plan, plan_design,
-                              ref_types, to_data)
+from test_torch_types import (BENCHES, IDS, bench_frames, frames,
+                              phase_plan, plan_design, ref_types, to_data)
 
 SHAPES = [(48, 48), (47, 48), (3, 48, 48)]
 
@@ -35,15 +35,20 @@ def _assert_outputs_equal(oracle, got, names):
         np.testing.assert_array_equal(got[k].numpy(), want, err_msg=k)
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=["x".join(map(str, s))
-                                               for s in SHAPES])
-@pytest.mark.parametrize("name,ref_build,port_build,params", BENCHES,
-                         ids=IDS)
-def test_torch_backend_equals_the_oracle(name, ref_build, port_build,
-                                         params, shape):
+# of_pyramid decimates and re-expands both frames, so the reference
+# defines it on even heights only (at 47 rows its upsampled flow has 48)
+ORACLE_CASES = [(b, s) for b in BENCHES for s in SHAPES
+                if not (b[0] == "of_pyramid" and s[-2] % 2)]
+
+
+@pytest.mark.parametrize("bench,shape", ORACLE_CASES,
+                         ids=[f"{b[0]}-{'x'.join(map(str, s))}"
+                              for b, s in ORACLE_CASES])
+def test_torch_backend_equals_the_oracle(bench, shape):
+    name, ref_build, port_build, params = bench
     rpipe = ref_build()
     types = ref_types(rpipe)
-    img = frames(shape, 7)
+    img = bench_frames(name, shape, 7)
     oracle = ref_run_fixed(rpipe, img, types, params)
     got = E.run_fixed(port_build(), img, types_from_data(to_data(types)),
                       params, backend="torch", device="cpu")

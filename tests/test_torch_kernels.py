@@ -19,6 +19,9 @@ import torch
 
 import repro.lowering as rl
 import repro_torch.lowering as pl_
+from repro.core.fixedpoint import FixedPointType as RefType
+from repro.dsl.builder import PipelineBuilder as RefBuilder
+from repro.dsl.exec import _run_concrete
 from repro.kernels.stencil.kernel import band_output, eval_band
 from repro.lowering import backends as rb
 from repro.lowering.pallas_backend import island_program as ref_program
@@ -28,27 +31,36 @@ from repro_torch.kernels.stencil import kernel as K
 from repro_torch.lowering import backends as pb
 from repro_torch.lowering.cuda_backend import island_program
 from repro_torch.pipelines.types import types_from_data
-from test_torch_types import (BENCHES, frames, phase_plan, plan_design,
-                              ref_types, to_data)
+from test_torch_types import (BENCHES, bench_frames, frames, phase_plan,
+                              plan_design, ref_types, to_data)
 
 CU = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / \
     "kernels" / "stencil" / "csrc" / "fused_band.cu"
+
+
+def _images(plp, image):
+    """Input stage -> its (B, H, W) frames: one array feeds the sole
+    input, a tuple the inputs in order."""
+    imgs = image if isinstance(image, tuple) else (image,)
+    return dict(zip(plp.pipeline.input_stages(), imgs))
 
 
 def _bands_equal(rlp, plp, image):
     """Every island, every band, every image: plain version == eval_band.
     Island inputs are the port's buffers (pipeline inputs ingested by
     both sides and compared first)."""
-    shape = image.shape[-2:]
+    img_of = _images(plp, image)
+    first = next(iter(img_of.values()))
+    shape = first.shape[-2:]
     rplan = rl.partition_islands(rlp, shape)
     pplan = pl_.partition_islands(plp, shape)
-    x = torch.from_numpy(image)
-    nb = image.shape[0]
+    nb = first.shape[0]
     buffers = {}
     for n in pplan.inputs:
-        buffers[n] = pb.ingest_input(x, plp.stages[n])
-        want = np.asarray(rb.ingest_input(jnp.asarray(image), rlp.stages[n],
-                                          jnp))
+        buffers[n] = pb.ingest_input(torch.from_numpy(img_of[n]),
+                                     plp.stages[n])
+        want = np.asarray(rb.ingest_input(jnp.asarray(img_of[n]),
+                                          rlp.stages[n], jnp))
         np.testing.assert_array_equal(buffers[n].numpy(), want)
         assert buffers[n].numpy().dtype == want.dtype
     checked = 0
@@ -95,7 +107,22 @@ def test_plain_version_equals_eval_band(bench, shape):
         rlp = rl.lower(rpipe, types, params=params)
         plp = pl_.lower(port_build(), types_from_data(to_data(types)),
                         params=params)
-        _bands_equal(rlp, plp, frames(shape, 21))
+        _bands_equal(rlp, plp, bench_frames(name, shape, 21))
+
+
+@pytest.mark.parametrize("bench", BENCHES, ids=[b[0] for b in BENCHES])
+def test_plain_version_equals_eval_band_narrow(bench):
+    """``datapath="narrow"``: int32 and int32-pair carriers and f32
+    expression stages, the reference's Pallas band geometry with its
+    `dequant_f32` path."""
+    name, ref_build, port_build, params = bench
+    rpipe = ref_build()
+    types = ref_types(rpipe)
+    with jax.enable_x64(True):
+        rlp = rl.lower(rpipe, types, params=params, datapath="narrow")
+        plp = pl_.lower(port_build(), types_from_data(to_data(types)),
+                        params=params, datapath="narrow")
+        _bands_equal(rlp, plp, bench_frames(name, (2, 40, 40), 23))
 
 
 def test_plain_version_equals_eval_band_on_a_saturating_phase_plan():
@@ -174,7 +201,8 @@ def test_encoder_rejects_what_the_kernel_does_not_run():
     isl = pl_.partition_islands(lp, (8, 8)).islands[0]
     with pytest.raises(pl_.LoweringError, match=r"x \*\* 3"):
         K.encode_program(island_program(lp, isl))
-    # narrow-mode f32 expression stages are a later slice of the port
+    # a narrow-mode f32 expression stage is encoded, flagged, and its
+    # plain version equals the reference's oracle
     p = PipelineBuilder("sq")
     a = p.image("a", 0, 15)
     p.define("s", a * a + a)
@@ -184,8 +212,17 @@ def test_encoder_rejects_what_the_kernel_does_not_run():
     lp = pl_.lower(pipe, types, datapath="narrow")
     assert lp.stages["s"].expr_dtype == "f32"
     isl = pl_.partition_islands(lp, (8, 8)).islands[0]
-    with pytest.raises(pl_.LoweringError, match="f64 expression"):
-        K.encode_program(island_program(lp, isl))
+    enc = K.encode_program(island_program(lp, isl))
+    assert [d["f32"] for d in enc.rows()] == [0, 1]
+    img = np.random.default_rng(4).integers(0, 16, (8, 8)).astype(np.float64)
+    x = pb.ingest_input(torch.from_numpy(img), lp.stages["a"])
+    got, = K.fused_pipeline_reference(enc, isl.schedule.grid)(x)
+    rpipe = RefBuilder("sq")         # the same pipeline, the reference's
+    ra = rpipe.image("a", 0, 15)
+    rpipe.define("s", ra * ra + ra)
+    want = _run_concrete(rpipe.build(), img, {}, {
+        "a": RefType(4, 0, False), "s": RefType(8, 0, False)}, xp=np)["s"]
+    np.testing.assert_array_equal(got.numpy(), want)
     # every coordinate is int32 in the kernel: a 40000 x 40000 uint16
     # image (3.2 GB of byte offsets) is refused
     name, ref_build, port_build, params = BENCHES[0]
@@ -219,10 +256,12 @@ def _tiled_equals_whole(plp, image, col_tiles):
     """Island by island: the column-tiled plain walk at every width in
     `col_tiles` == the whole-width walk, dtype included.  Returns the
     column-tile counts seen."""
-    plan = pl_.partition_islands(plp, image.shape[-2:])
-    x = torch.from_numpy(image)
-    buffers = {n: pb.ingest_input(x, plp.stages[n]) for n in plan.inputs}
-    nb, seen = image.shape[0], set()
+    img_of = _images(plp, image)
+    first = next(iter(img_of.values()))
+    plan = pl_.partition_islands(plp, first.shape[-2:])
+    buffers = {n: pb.ingest_input(torch.from_numpy(img_of[n]),
+                                  plp.stages[n]) for n in plan.inputs}
+    nb, seen = first.shape[0], set()
     for isl in plan.islands:
         program = island_program(plp, isl)
         ins = [buffers[n] for n in isl.inputs]
@@ -252,8 +291,8 @@ TILED = [(b, (2, 48, 48), (8, 16, 32, 64)) for b in BENCHES] + \
                          ids=[f"{b[0]}-{'x'.join(map(str, s))}"
                               for b, s, _ in TILED])
 def test_column_tiled_walk_equals_whole_width(bench, shape, col_tiles):
-    seen = _tiled_equals_whole(_port_lowered(bench), frames(shape, 17),
-                               col_tiles)
+    seen = _tiled_equals_whole(_port_lowered(bench),
+                               bench_frames(bench[0], shape, 17), col_tiles)
     assert 1 in seen and max(seen) > 2      # one tile, and several
 
 
@@ -265,12 +304,14 @@ def test_column_tiled_walk_on_a_saturating_phase_plan():
 
 
 def test_encoder_places_every_1080p_tile_on_chip():
-    """At 1080x1920 every island of usm, hcd and dus_ext gets column
-    tiles whose block fits two to an SM with no tile in global memory;
+    """At 1080x1920 every island of usm, hcd, dus_ext, of and of_pyramid
+    gets column tiles whose block fits three to an SM with no tile in
+    global memory;
     ``smem_limit=0`` moves every tile out (compute tiles to per-block
     global slots, inputs to reads in place); outputs nothing reads take
     no tile."""
-    for bench in (BENCHES[0], BENCHES[1], BENCHES[3]):
+    for bench in (BENCHES[0], BENCHES[1], BENCHES[3], BENCHES[4],
+                  BENCHES[5]):
         plp = _port_lowered(bench)
         for isl in pl_.partition_islands(plp, (1080, 1920)).islands:
             program = island_program(plp, isl)

@@ -16,7 +16,7 @@ import repro_torch.pipelines as tp
 from repro.analysis import run_plan
 from repro.core.interval import Interval
 from repro.core.range_analysis import StageRange
-from repro.pipelines import dus, hcd, usm
+from repro.pipelines import dus, hcd, optical_flow, usm
 from repro.pipelines import workflows as W
 from repro_torch.pipelines.types import (DesignTypes, load_types,
                                          types_from_data)
@@ -27,8 +27,13 @@ BENCHES = [
     ("hcd", hcd.build, tp.hcd.build, {}),
     ("dus", dus.build, tp.dus.build, {}),
     ("dus_ext", dus.build_extended, tp.dus.build_extended, {}),
+    ("of", optical_flow.build, tp.optical_flow.build, {}),
+    ("of_pyramid", optical_flow.build_pyramid,
+     tp.optical_flow.build_pyramid, {}),
 ]
 IDS = [b[0] for b in BENCHES]
+# input stages per benchmark: optical flow takes two frames
+N_IN = {"of": 2, "of_pyramid": 2}
 
 
 def ref_types(pipe, beta=4):
@@ -83,6 +88,15 @@ def plan_design(plan):
 def frames(shape, seed):
     return np.random.default_rng(seed).integers(0, 256, shape).astype(
         np.float64)
+
+
+def bench_frames(name, shape, seed):
+    """A benchmark's input: one frame, or a tuple of frames (seeds
+    `seed`, `seed + 1`, ...) for a pipeline with several inputs."""
+    n = N_IN.get(name, 1)
+    if n == 1:
+        return frames(shape, seed)
+    return tuple(frames(shape, seed + k) for k in range(n))
 
 
 def _fields(t):

@@ -920,6 +920,9 @@ def band_kernel_times(dev, card, params) -> dict:
     flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
     places = ("shared", "global", "none")
     out = {}
+    print(f"fused_band.cu ptxas, the kernel without and with f32 stages "
+          f"({card}): {ptxas_lines('fused_band', 'fused_band_kernel')}",
+          flush=True)
 
     def launcher(encs, bufs):
         calls = [(K.fused_pipeline(e, i.schedule.grid, shape[0]),

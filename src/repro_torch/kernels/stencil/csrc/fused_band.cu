@@ -94,6 +94,10 @@
 //    does: a tap is (float)q * (float)2^-b, a constant the f32 value the
 //    encoder baked, every op in f32, then rintf(raw * (float)2^b) and
 //    the clip in f32.  The f64 path is the same template at double.
+//    A program with f32 stages (L_F32) launches its own instantiation
+//    of the kernel, so the f64-only kernel keeps its registers and its
+//    code: with both stacks in one kernel, ptxas spilled at the
+//    80-register cap that three blocks an SM set.
 //  * No FMA contraction: built with --fmad=false, so `a*b + c` rounds
 //    twice as numpy does (HCD's harris = det - k*trace^2 sits on rint ties).
 //  * rint() is round-half-even; numpy's minimum/maximum propagate NaN
@@ -132,7 +136,7 @@ enum Layout {
   L_N_META, L_O_STAGES, L_O_TAPS, L_O_PHASES, L_O_PROG, L_O_RMAPS,
   L_O_CMAPS, L_O_RESMAP, L_O_FCONST, L_N_STAGES, L_N_RMAPS,
   L_N_CMAPS, L_S_SBASE, L_S_ROWMAPS, L_S_COLMAPS, L_IN_STRIDE,
-  L_SMEM_BYTES, L_NTILES,
+  L_SMEM_BYTES, L_NTILES, L_F32,
   NL
 };
 // LAYOUT-END
@@ -512,9 +516,8 @@ struct Block {
   // register stack of MAX_STACK entries per pixel (s[0] the top; a push
   // shifts down, a pop shifts up, so every index is static), in F (double,
   // or float for an f32 stage); returns the stored values (f64 bits for
-  // float-stored stages, which are never f32 stages).  Inlined, as the
-  // one instantiation was before there were two: a call would put the
-  // quad's `out` in local memory
+  // float-stored stages, which are never f32 stages).  Inlined: a call
+  // would put the quad's `out` in local memory
   template <typename F>
   __device__ __forceinline__ void expr(const int64_t* d, int r, int c0,
                                        int64_t* out) const {
@@ -635,6 +638,7 @@ struct Block {
   // output window [-lo, -lo+step) x [-clo, -clo+cstep) into its output.
   // A thread takes a quad of 4 neighbouring columns of one tile row at a
   // time; a block's threads take consecutive quads.
+  template <bool F32>
   __device__ void run_stage(int s, const Item& it) const {
     const int64_t* d = stage(s);
     int L = (int)d[F_L], CW = (int)d[F_CW];
@@ -644,7 +648,7 @@ struct Block {
     int code = (int)d[F_CODE], es = (int)d[F_ESIZE];
     int pitch = (int)d[F_PITCH];
     int row0 = it.i * step + lo, col0 = it.j * cstep + clo;
-    bool lin = d[F_KIND] == KIND_INTLINEAR, f32 = d[F_F32] != 0;
+    bool lin = d[F_KIND] == KIND_INTLINEAR, f32 = F32 && d[F_F32] != 0;
     char* tile = sbase[s];
     char* out = d[F_OUT_SLOT] < 0
                     ? nullptr
@@ -678,7 +682,9 @@ struct Block {
 };
 
 // three blocks an SM (at most 85 registers a thread; SMEM_LIMIT in
-// kernel.py keeps shared memory to match)
+// kernel.py keeps shared memory to match); F32: the program has f32
+// expression stages
+template <bool F32>
 __global__ void __launch_bounds__(THREADS, 3)
     fused_band_kernel(const __grid_constant__ Params P) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -703,7 +709,7 @@ __global__ void __launch_bounds__(THREADS, 3)
     __syncthreads();          // everyone's copies, maps and bases
     for (int s = 0; s < blk.n_stages; ++s) {
       if (blk.stage(s)[F_KIND] == KIND_INPUT) continue;
-      blk.run_stage(s, it);
+      blk.run_stage<F32>(s, it);
       __syncthreads();        // the next stage (or item) reads this tile
     }
   }
@@ -711,16 +717,18 @@ __global__ void __launch_bounds__(THREADS, 3)
 
 }  // namespace
 
-// The kernel's residency at `smem_bytes` of dynamic shared memory:
-// out[0] blocks per SM, out[1] SMs, out[2] registers a thread, out[3]
-// local bytes a thread.  Returns a CUDA error code (0 on success).
-extern "C" int fused_band_occupancy(int smem_bytes, int threads, int* out) {
+// The kernel's residency at `smem_bytes` of dynamic shared memory, for
+// programs with f32 stages if `f32`: out[0] blocks per SM, out[1] SMs,
+// out[2] registers a thread, out[3] local bytes a thread.  Returns a
+// CUDA error code (0 on success).
+extern "C" int fused_band_occupancy(int smem_bytes, int threads, int f32,
+                                    int* out) {
+  const void* kernel = f32 ? (const void*)fused_band_kernel<true>
+                           : (const void*)fused_band_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_band_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0],
-                                                    fused_band_kernel,
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel,
                                                     threads, smem_bytes);
   if (e != cudaSuccess) return (int)e;
   int dev = 0;
@@ -728,7 +736,7 @@ extern "C" int fused_band_occupancy(int smem_bytes, int threads, int* out) {
   e = cudaDeviceGetAttribute(&out[1], cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   cudaFuncAttributes fa;
-  e = cudaFuncGetAttributes(&fa, fused_band_kernel);
+  e = cudaFuncGetAttributes(&fa, kernel);
   out[2] = fa.numRegs;
   out[3] = (int)fa.localSizeBytes;
   return (int)e;
@@ -736,7 +744,8 @@ extern "C" int fused_band_occupancy(int smem_bytes, int threads, int* out) {
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  `ins`
 // and `outs` are host arrays of device pointers, `layout` the NL
-// scalars; the kernel allocates nothing and does not synchronize.
+// scalars (L_F32 picks the instantiation); the kernel allocates nothing
+// and does not synchronize.
 extern "C" int fused_band_launch(const int64_t* meta, const int* layout,
                                  const void* const* ins, int n_in,
                                  void* const* outs, int n_out, char* ws,
@@ -757,9 +766,11 @@ extern "C" int fused_band_launch(const int64_t* meta, const int* layout,
   }
   (void)cudaGetLastError();   // report this launch's error, not an older one
   int smem = P.lay[L_SMEM_BYTES];
+  void (*kernel)(const Params) =
+      P.lay[L_F32] ? fused_band_kernel<true> : fused_band_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_band_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  fused_band_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(P);
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(P);
   return (int)cudaGetLastError();
 }

@@ -60,7 +60,7 @@ NF = len(FIELDS)
 LAYOUT = ("n_meta", "o_stages", "o_taps", "o_phases", "o_prog", "o_rmaps",
           "o_cmaps", "o_resmap", "o_fconst", "n_stages", "n_rmaps",
           "n_cmaps", "s_sbase", "s_rowmaps", "s_colmaps", "in_stride",
-          "smem_bytes", "ntiles")
+          "smem_bytes", "ntiles", "f32")
 
 KIND_INPUT, KIND_INTLINEAR, KIND_EXPR = 0, 1, 2
 # where a stage's tile lives: shared memory; a per-block global slot (a
@@ -589,22 +589,26 @@ def encode_program(program: Sequence[Dict], col_tile: Optional[int] = None,
     else:
         # every width on the lattice (and one whole-width tile), cheapest
         # first, wider on ties, until one keeps every tile on chip; else
-        # the cheapest, with some tiles in global memory
+        # the cheapest whose tables fit, with some tiles in global memory
         tws: List[Optional[int]] = [None] + (
             [] if lattice is None else
             list(range(lattice, min(MAX_COL_TILE, wb - 1) + 1, lattice)))
         cost = {tw: _item_passes(rows, refs, wb, tw) for tw in tws}
         tws.sort(key=lambda t: (cost[t], -(t or wb)))
-        built = None
+        built, fits, error = None, [], None
         for tw in tws:
             try:
                 built = build(tw, smem_limit)
-            except LoweringError:
+            except LoweringError as exc:
+                error = exc
                 continue
+            fits.append(tw)
             if all(d["place"] != PLACE_GLOBAL for d in rows):
                 break
         else:
-            built = build(tws[0], smem_limit)
+            if not fits:
+                raise error
+            built = build(fits[0], smem_limit)
     tw, nt, rkeys, ckeys, n_meta, head, ws = built
     if ws > _I32_MAX:
         raise LoweringError("the island's global tiles overflow the "
@@ -621,8 +625,11 @@ def encode_program(program: Sequence[Dict], col_tile: Optional[int] = None,
     offs = np.cumsum([0] + [a.size for a in parts]).tolist()
     layout = dict(zip(("o_stages", "o_taps", "o_phases", "o_prog",
                        "o_rmaps", "o_cmaps", "o_resmap", "o_fconst"), offs))
+    # f32: the program has f32 stages and takes the kernel's
+    # instantiation with a float stack
     layout.update(head, n_meta=n_meta, n_stages=len(rows),
-                  n_rmaps=len(rkeys), n_cmaps=len(ckeys), ntiles=nt)
+                  n_rmaps=len(rkeys), n_cmaps=len(ckeys), ntiles=nt,
+                  f32=int(any(d["f32"] for d in rows)))
     return EncodedProgram(
         stages=parts[0], taps=parts[1], phases=parts[2], prog=parts[3],
         fconst=np.asarray(fconst, dtype=np.float64), rmaps=maps[0],
@@ -855,18 +862,20 @@ _OCCUPANCY: Dict[Tuple[int, int], Dict[str, int]] = {}
 
 
 def occupancy(enc: EncodedProgram, device) -> Dict[str, int]:
-    """The kernel's resources on `device` at `enc`'s shared memory:
+    """The kernel's resources on `device` at `enc`'s shared memory, for
+    the instantiation `enc` launches (with or without f32 stages):
     blocks an SM runs at once, SMs, registers and local bytes a thread
     (from the compiled kernel)."""
     from repro_torch.kernels import _build
     dev = torch.device(device)
+    f32 = enc.layout["f32"]
     key = (dev.index if dev.index is not None
-           else torch.cuda.current_device(), enc.smem_bytes)
+           else torch.cuda.current_device(), enc.smem_bytes, f32)
     if key not in _OCCUPANCY:
         out = (ctypes.c_int * 4)()
         with torch.cuda.device(dev):
             rc = _build.load("fused_band").fused_band_occupancy(
-                enc.smem_bytes, THREADS, out)
+                enc.smem_bytes, THREADS, f32, out)
         if rc != 0:
             raise RuntimeError(f"fused_band occupancy query failed: CUDA "
                                f"error {rc}")

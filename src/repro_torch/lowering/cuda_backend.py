@@ -6,7 +6,8 @@ a chain of band-kernel launches, one per rate island
 (`lowering.islands.partition_islands`).  Islands hand off through
 boundary buffers kept on the device in each boundary stage's legalized
 container (`backends.store_dtype`), and the requested outputs (the
-pipeline's, or any stages named) are dequantized to f64 on return.  Everything is bit-identical to the reference's numpy oracle
+pipeline's, or any stages named) are dequantized to f64 on return.
+Everything is bit-identical to the reference's numpy oracle
 `repro.dsl.exec.run_fixed(backend="numpy")`.
 
 `compile_cuda(..., plain=False)` launches `kernels/stencil/csrc/

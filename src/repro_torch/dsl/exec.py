@@ -70,9 +70,8 @@ def pipeline_content_hash(pipeline: Pipeline) -> str:
 
 
 def executor_cache_key(pipeline: Pipeline, types, params: Dict[str, float],
-                       backend: str, column: Optional[str] = None,
-                       datapath: str = "exact",
-                       device: DeviceLike = "cpu") -> tuple:
+                       backend: str, column: Optional[str], datapath: str,
+                       device: torch.device) -> tuple:
     """Content key of one compiled executor: (pipeline content hash,
     plan or type-map serialization, params, backend, column, datapath,
     device)."""

@@ -29,6 +29,7 @@ from repro_torch.analysis.plan import BitwidthPlan
 from repro_torch.core import fixedpoint as pfx
 from repro_torch.dsl import exec as E
 from repro_torch.pipelines.types import types_from_data
+from test_torch_lowering import _sched_fields
 from test_torch_types import (BENCHES, IDS, bench_frames, ref_types,
                               to_data)
 
@@ -206,10 +207,7 @@ def test_partition_islands_with_outputs_equals_the_reference(k, outputs):
             assert (g.idx, g.stages, g.inputs, g.outputs, g.rate,
                     g.single_tile) == (w.idx, w.stages, w.inputs,
                                        w.outputs, w.rate, w.single_tile)
-            assert (g.schedule.grid, g.schedule.tile_rows,
-                    g.schedule.order) == (w.schedule.grid,
-                                          w.schedule.tile_rows,
-                                          w.schedule.order)
+            assert _sched_fields(g.schedule) == _sched_fields(w.schedule)
     # make_jitted_fixed: the band-kernel executor of those stages (its
     # plain version on CPU tensors)
     img = bench_frames(name, (2, 48, 48), 5)

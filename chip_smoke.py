@@ -929,6 +929,15 @@ def band_kernel_times(dev, card, params) -> dict:
                   [bufs[n] for n in i.inputs]) for i, e in encs]
         return lambda: [o for f, a in calls for o in f(*a)]
 
+    def launches_of(run):
+        """The band kernel's launches in one call of `run`, counted from
+        0 after the warm-up call."""
+        K.LAUNCHES["fused_band"] = 0
+        run()
+        n = K.LAUNCHES["fused_band"]
+        assert n > 0, "the band kernel never launched"
+        return n
+
     def describe(name, isls):
         for isl, enc in isls:
             occ = K.occupancy(enc, dev)
@@ -956,6 +965,7 @@ def band_kernel_times(dev, card, params) -> dict:
         describe(name, isls)
         run = launcher(isls, bufs)
         want = run()
+        calls = launches_of(run)
         ms = cuda_ms(run, 20)
         cold = cold_ms(run, 10, flush)
         moved, ops = band_work(isls, shape[0])
@@ -979,12 +989,13 @@ def band_kernel_times(dev, card, params) -> dict:
               f"flushed, bound {bound:.4f} ms ({bound_by}: {moved} B at "
               f"{HBM_BYTES_PER_S:.3g} B/s; integer, f64 and f32 ops "
               f"{[n for n, _ in ops]} at {[r for _, r in ops]} /s), "
-              f"{len(isls)} island(s)" + (
+              f"{len(isls)} island(s), {calls} launch(es) counted in "
+              f"one call" + (
                   "; same kernel warm with " + ", ".join(
                       f"{k_} {v:.4f} ms" for k_, v in split.items())
                   if split else ""), flush=True)
         out[name] = {"ms": ms, "cold_ms": cold, "bound_ms": bound,
-                     "bound_by": bound_by, "launches_per_batch": len(isls)}
+                     "bound_by": bound_by, "launches_per_batch": calls}
         if split:
             out[name]["split_ms"] = split
         if name == "of":
@@ -995,6 +1006,7 @@ def band_kernel_times(dev, card, params) -> dict:
             describe(f"{name} narrow", nisls)
             narrow = launcher(nisls, bufs)
             same(f"fused_band {name} narrow vs exact", narrow(), want)
+            n_calls = launches_of(narrow)
             n_ms = cuda_ms(narrow, 20)
             n_cold = cold_ms(narrow, 10, flush)
             n_moved, n_ops = band_work(nisls, shape[0])
@@ -1005,10 +1017,11 @@ def band_kernel_times(dev, card, params) -> dict:
                   f"({card}): kernel {n_ms:.4f} ms warm, {n_cold:.4f} ms "
                   f"with the L2 flushed (exact: {ms:.4f} / {cold:.4f}), "
                   f"bound {n_bound:.4f} ms ({n_by}; ops {[n for n, _ in n_ops]}"
-                  f"), f32 stages {f32}; outputs == exact lowering",
-                  flush=True)
+                  f"), f32 stages {f32}, {n_calls} launch(es) counted in "
+                  f"one call; outputs == exact lowering", flush=True)
             out[name]["narrow"] = {"ms": n_ms, "cold_ms": n_cold,
-                                   "bound_ms": n_bound, "f32_stages": f32}
+                                   "bound_ms": n_bound, "f32_stages": f32,
+                                   "launches_per_batch": n_calls}
         if name in ("usm", "of"):
             (isl, enc), = isls
             plain = K.fused_pipeline_reference(enc, isl.schedule.grid,
@@ -1017,8 +1030,8 @@ def band_kernel_times(dev, card, params) -> dict:
             out[name]["plain_ms"] = cuda_ms(lambda: plain(*ins),
                                             2 if name == "usm" else 1)
             print(f"fused_band {name} plain version ({card}): "
-                  f"{out[name]['plain_ms']:.2f} ms; 1 launch per batch of "
-                  f"4 = 0.25 launches per frame", flush=True)
+                  f"{out[name]['plain_ms']:.2f} ms; the kernel: {calls} "
+                  f"launch(es) per batch of {shape[0]}", flush=True)
     return out
 
 

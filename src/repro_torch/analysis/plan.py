@@ -59,19 +59,6 @@ class BitwidthPlan:
     betas: Dict[str, int] = dataclasses.field(default_factory=dict)
     default_column: str = ""
 
-    # -- construction -------------------------------------------------------
-    def add_column(self, name: str, ranges: Dict[str, StageRange],
-                   provenance: Provenance,
-                   phases: Optional[PhaseColumn] = None) -> None:
-        if name in self.columns:
-            raise ValueError(f"duplicate plan column {name!r}")
-        self.columns[name] = dict(ranges)
-        self.provenance[name] = provenance
-        if phases:
-            self.phases[name] = phases
-        if not self.default_column:
-            self.default_column = name
-
     # -- queries ------------------------------------------------------------
     def _col(self, column: Optional[str]) -> str:
         name = column or self.default_column
@@ -79,19 +66,6 @@ class BitwidthPlan:
             raise KeyError(f"plan has no column {name!r}; "
                            f"columns: {sorted(self.columns)}")
         return name
-
-    def stage_ranges(self, column: Optional[str] = None
-                     ) -> Dict[str, StageRange]:
-        return dict(self.columns[self._col(column)])
-
-    def alphas(self, column: Optional[str] = None) -> Dict[str, int]:
-        return {n: r.alpha for n, r in self.columns[self._col(column)].items()}
-
-    def signed(self, column: Optional[str] = None) -> Dict[str, bool]:
-        return {n: r.signed for n, r in self.columns[self._col(column)].items()}
-
-    def stages(self) -> List[str]:
-        return list(self.columns[self._col(None)])
 
     def record_election(self, column: Optional[str],
                         notes: List[str]) -> None:

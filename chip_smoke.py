@@ -52,7 +52,19 @@ Phases (any failure raises, and the exit code is not 0):
    share and where its time went (trace in `chiprun_out/`); then serve
    16 optical-flow frame pairs at 1080x1920, batch 4, the same way
    (counts from 0, every result against the plain executor);
-4. print a `{"kernels": [...]}` line, the card's name and power limit,
+5. analysis on the card: for each of the six benchmarks at 1080x1920,
+   `run_plan` over interval, affine, intersect, a `ProfilePass` of 4
+   seeded frames (frame pairs) on the card, refine(interval, profile)
+   and cluster(interval), printing the seconds each pass took and the
+   sum of alphas per column; check profile ⊆ interval ⊆
+   cluster(interval) and that the interval column's design equals the
+   committed `pipelines/types/<name>_b4.json`; run the profile and
+   cluster designs through the kernel at 4x1080x1920 on fresh frames,
+   each `torch.equal` to the plain version, with the band kernel's
+   launches counted from 0 in one call; for `of`, time the profile's
+   statistics on the card against the plain host version
+   (`np_alpha_bits` on numpy copies);
+6. print a `{"kernels": [...]}` line, the card's name and power limit,
    and, last, `{"ok": true, "device": {...}}`.
 
 Without a CUDA card it exits non-zero before printing any result.
@@ -1095,6 +1107,151 @@ def serve(pipe, types, params, requests, label, card, dev) -> dict:
     return out
 
 
+# phase 5 runs the analysis on every benchmark at full width
+ANALYZED = ("usm", "hcd", "dus", "dus_ext", "of", "of_pyramid")
+DESIGNS = ("profile", "cluster(interval)")
+
+
+def on_card(img, dev):
+    """A numpy frame (or frame pair) as tensors on `dev`."""
+    import torch
+    if isinstance(img, tuple):
+        return tuple(torch.from_numpy(a).to(dev) for a in img)
+    return torch.from_numpy(img).to(dev)
+
+
+def analysis_on_the_card(dev, card, params) -> dict:
+    """Phase 5: for each pipeline of `ANALYZED` at 1080x1920, `run_plan`
+    over interval, affine, intersect, a `ProfilePass` of 4 seeded frames
+    (frame pairs) on the card, refine(interval, profile) and
+    cluster(interval), timed per pass; profile ⊆ interval nesting; the
+    interval column's design equal to the committed one; the profile and
+    cluster designs through the kernel at 4x1080x1920 on fresh frames,
+    each `torch.equal` to the plain version, with the band kernel's
+    launches counted from 0 in one call; for `of`, `ProfilePass`'s
+    statistics on the card timed against the plain host version
+    (`np_alpha_bits` on numpy copies of the same stages)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.analysis import (ProfilePass, clear_memo, cluster,
+                                      refine, run_plan)
+    from repro_torch.dsl.exec import run_fixed
+    from repro_torch.kernels.stencil import kernel as K
+    from repro_torch.pipelines import ALL
+    from repro_torch.pipelines.types import design_from_plan, load_types
+    out = {}
+    clear_memo()
+    for k, name in enumerate(ANALYZED):
+        pipe, p = ALL[name](), params.get(name, {})
+        samples = [on_card(inputs(name, FRAME, 300 + 10 * k + 2 * i), dev)
+                   for i in range(4)]
+        prof = ProfilePass(samples, params=p, device=dev)
+        with obs.tracing() as tr:
+            t0 = time.perf_counter()
+            plan = run_plan(pipe, ["interval", "affine", "intersect", prof,
+                                   refine("interval", prof),
+                                   cluster("interval")],
+                            betas={n: 4 for n in pipe.stages})
+            plan_s = time.perf_counter() - t0
+        (top,) = tr.spans("analysis.run_plan")
+        pass_s = {s.attrs["column"]: s.t1 - s.t0
+                  for s in tr.spans("analysis.pass")
+                  if s.parent_id == top.span_id}
+        sums = {c: sum(plan.alphas(c).values()) for c in plan.columns}
+        plan.check_nesting(["profile", "interval"])
+        plan.check_nesting(["interval", "cluster(interval)"])
+        assert design_from_plan(plan, "interval") == load_types(name), \
+            f"{name}: the interval design != pipelines/types/{name}_b4.json"
+        print(f"analysis {name} {FRAME[0]}x{FRAME[1]} ({card}): run_plan "
+              f"{plan_s:.4f} s; seconds a pass "
+              f"{ {c: round(v, 4) for c, v in pass_s.items()} }; sum of "
+              f"alphas a column {sums}; profile ⊆ interval ⊆ "
+              f"cluster(interval) holds; the interval design equals the "
+              f"committed one", flush=True)
+        row = {"plan_s": plan_s, "pass_s": pass_s, "alpha_sums": sums,
+               "designs": {}}
+        img = inputs(name, (4,) + FRAME, 500 + 2 * k)
+        served = run_fixed(pipe, img, load_types(name), p, backend="cuda",
+                           device=dev)
+        for col in DESIGNS:
+            design = design_from_plan(plan, col)
+            run_fixed(pipe, img, design, p, backend="cuda", device=dev)
+            K.LAUNCHES["fused_band"] = 0
+            got = run_fixed(pipe, img, design, p, backend="cuda",
+                            device=dev)
+            torch.cuda.synchronize()
+            launches = K.LAUNCHES["fused_band"]
+            assert launches > 0, f"{name} {col}: the kernel never launched"
+            want = run_fixed(pipe, img, design, p, backend="torch",
+                             device=dev)
+            for n in pipe.outputs:
+                assert got[n].shape[0] == 4 and torch.isfinite(got[n]).all()
+                if not torch.equal(got[n], want[n]):
+                    raise AssertionError(f"{name} {col} design: kernel != "
+                                         f"plain version on {n}")
+            differs = float(np.mean([
+                (got[n] != served[n]).double().mean().item()
+                for n in pipe.outputs]))
+            row["designs"][col] = {"launches": launches,
+                                   "differs_from_interval": differs}
+            print(f"analysis {name} {col} design 4x{FRAME[0]}x{FRAME[1]} "
+                  f"({card}): kernel == plain version, {launches} "
+                  f"launch(es) counted in one call; outputs differ from "
+                  f"the interval design's on {100 * differs:.4f}% of "
+                  f"pixels", flush=True)
+        if name == "of":
+            row.update(profile_times(pipe, samples, dev, card))
+        out[name] = row
+    clear_memo()
+    return out
+
+
+def profile_times(pipe, samples, dev, card) -> dict:
+    """`of`'s profile on the card (statistics where the float executor's
+    stage tensors are) against the plain host version (the same stages
+    copied to numpy, `np_alpha_bits`); both equal.  Host clock around
+    synchronized calls, 3 and 2 runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.profile import profile_pipeline
+    from repro_torch.dsl.exec import make_profile_runner
+    runner = make_profile_runner(pipe, device=dev)
+
+    def host_runner(img, p):
+        return {n: v.cpu().numpy() for n, v in runner(img, p).items()}
+
+    def timed(fn, reps):
+        secs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return res, secs
+
+    _, float_s = timed(lambda: [runner(im, {}) for im in samples], 3)
+    card_res, card_s = timed(
+        lambda: profile_pipeline(pipe, samples, runner), 3)
+    host_res, host_s = timed(
+        lambda: profile_pipeline(pipe, samples, host_runner), 2)
+    assert card_res.alpha_max == host_res.alpha_max
+    assert card_res.alpha_avg == host_res.alpha_avg
+    assert card_res.observed_range == host_res.observed_range
+    for n, (bits, cum) in host_res.cdf.items():
+        assert np.array_equal(card_res.cdf[n][1], cum), n
+    print(f"profile of, {len(samples)} frame pairs {FRAME[0]}x{FRAME[1]} "
+          f"({card}): float executor alone {float_s} s; ProfilePass "
+          f"statistics on the card {card_s} s; plain host version "
+          f"(np_alpha_bits on numpy copies) {host_s} s; the two equal",
+          flush=True)
+    return {"float_s": float_s, "profile_card_s": card_s,
+            "profile_host_s": host_s}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1178,7 +1335,10 @@ def main() -> int:
                  [inputs("of", FRAME, 200 + 2 * i) for i in range(n_frames)],
                  "of", card, dev)
 
-    # -- 4. result lines ---------------------------------------------------
+    # -- 5. analysis on the card --------------------------------------------
+    analysis = analysis_on_the_card(dev, card, params)
+
+    # -- 6. result lines ---------------------------------------------------
     usm_t = band["usm"]
     print(json.dumps({"kernels": [{
         "name": "fused_band", "route": "cuda",
@@ -1190,7 +1350,8 @@ def main() -> int:
         "cold_ms": usm_t["cold_ms"],
         "pipelines": {n: {k: v for k, v in t.items() if k != "split_ms"}
                       for n, t in band.items()},
-        "serving": {"usm": served, "of": flow}}] + library_rows}))
+        "serving": {"usm": served, "of": flow},
+        "analysis": analysis}] + library_rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
-"""`BitwidthPlan` — the bit-width synthesis artifact, as data.
+"""`BitwidthPlan` — the artifact every analysis pass emits into.
 
 The port's own copy of `repro.analysis.plan.BitwidthPlan`: one
-`StageRange` column per analysis pass, each pass's provenance, optional
-per-stage phase columns keyed by sampling-lattice residue, the beta
-assignment, and the stable JSON form.  `from_json` reads the
+`StageRange` column per analysis pass (`analysis.driver.run_plan` adds
+them), each pass's provenance, optional per-stage phase columns keyed by
+sampling-lattice residue, the beta assignment, the soundness-nesting
+check across columns, and the stable JSON form.  `from_json` reads the
 reference's `to_json` text unchanged and `to_json` writes it back
 unchanged, so a design moves from the reference to the port as
 ``BitwidthPlan.from_json(reference_plan.to_json())``.
@@ -46,6 +47,10 @@ def _sr_from_json(d: Dict) -> StageRange:
                       alpha=int(d["alpha"]), signed=bool(d["signed"]))
 
 
+class PlanNestingError(AssertionError):
+    """A plan-level soundness-nesting check failed (see `check_nesting`)."""
+
+
 @dataclasses.dataclass
 class BitwidthPlan:
     """Per-pipeline bit-width plan (columns + provenance)."""
@@ -59,6 +64,19 @@ class BitwidthPlan:
     betas: Dict[str, int] = dataclasses.field(default_factory=dict)
     default_column: str = ""
 
+    # -- construction -------------------------------------------------------
+    def add_column(self, name: str, ranges: Dict[str, StageRange],
+                   provenance: Provenance,
+                   phases: Optional[PhaseColumn] = None) -> None:
+        if name in self.columns:
+            raise ValueError(f"duplicate plan column {name!r}")
+        self.columns[name] = dict(ranges)
+        self.provenance[name] = provenance
+        if phases:
+            self.phases[name] = phases
+        if not self.default_column:
+            self.default_column = name
+
     # -- queries ------------------------------------------------------------
     def _col(self, column: Optional[str]) -> str:
         name = column or self.default_column
@@ -66,6 +84,18 @@ class BitwidthPlan:
             raise KeyError(f"plan has no column {name!r}; "
                            f"columns: {sorted(self.columns)}")
         return name
+
+    def stage_ranges(self, column: Optional[str] = None) -> Dict[str, StageRange]:
+        return dict(self.columns[self._col(column)])
+
+    def alphas(self, column: Optional[str] = None) -> Dict[str, int]:
+        return {n: r.alpha for n, r in self.columns[self._col(column)].items()}
+
+    def signed(self, column: Optional[str] = None) -> Dict[str, bool]:
+        return {n: r.signed for n, r in self.columns[self._col(column)].items()}
+
+    def stages(self) -> List[str]:
+        return list(self.columns[self._col(None)])
 
     def record_election(self, column: Optional[str],
                         notes: List[str]) -> None:
@@ -129,6 +159,35 @@ class BitwidthPlan:
             self._clamp_note(col, f"alpha clamped to 1 on zero-range "
                                   f"phase(s) of: {', '.join(clamped)}")
         return out
+
+    # -- plan-level checks ---------------------------------------------------
+    def check_nesting(self, columns: List[str], strict_alpha: bool = True,
+                      ) -> bool:
+        """Soundness-nesting invariant across columns, tightest first.
+
+        ``check_nesting(["profile", "smt", "meet(interval,affine)"])``
+        asserts per stage that each column's range is enclosed by the next
+        one's (and, with `strict_alpha`, that alphas are non-decreasing) —
+        the plan-level form of the paper's profile ⊆ solver ⊆ static
+        ordering.  Raises `PlanNestingError` listing every violation.
+        """
+        bad: List[str] = []
+        for tight, loose in zip(columns, columns[1:]):
+            a, b = self.columns[self._col(tight)], self.columns[self._col(loose)]
+            for n in a:
+                if n not in b:
+                    continue
+                if not b[n].range.encloses(a[n].range):
+                    bad.append(f"{n}: {tight} {a[n].range} ⊄ "
+                               f"{loose} {b[n].range}")
+                elif strict_alpha and a[n].alpha > b[n].alpha:
+                    bad.append(f"{n}: alpha({tight})={a[n].alpha} > "
+                               f"alpha({loose})={b[n].alpha}")
+        if bad:
+            raise PlanNestingError(
+                f"plan {self.pipeline!r} nesting {' ⊆ '.join(columns)} "
+                f"violated:\n  " + "\n  ".join(bad))
+        return True
 
     # -- serialization -------------------------------------------------------
     def to_json_dict(self) -> Dict:

@@ -125,6 +125,37 @@ def expr_refs(e: Expr) -> List[Ref]:
     return out
 
 
+def expr_ops(e: Expr) -> Dict[str, int]:
+    """Operation census of an expression tree (for the cost model)."""
+    counts: Dict[str, int] = {}
+
+    def bump(k: str):
+        counts[k] = counts.get(k, 0) + 1
+
+    def go(n: Expr):
+        if isinstance(n, BinOp):
+            # constant-folded multiplies by +-1 are wires, not ops
+            if not (n.op == "*" and isinstance(n.left, Const) and abs(n.left.value) == 1.0):
+                bump(n.op)
+            go(n.left); go(n.right)
+        elif isinstance(n, Pow):
+            bump("*")  # squaring ~ one multiplier; higher powers log-many
+            go(n.base)
+        elif isinstance(n, Call):
+            bump(n.fn)
+            for a in n.args:
+                go(a)
+        elif isinstance(n, Cmp):
+            bump("cmp")
+            go(n.left); go(n.right)
+        elif isinstance(n, Select):
+            bump("sel")
+            go(n.cond); go(n.then); go(n.other)
+
+    go(e)
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # Stages and pipelines
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """The port's front door: pipeline executors (paper §IV-C).
 
-Port of `repro.dsl.exec`: the concrete executors and the locked-LRU
-executor memo.
+Port of `repro.dsl.exec`: the concrete executors, the per-pixel
+abstract executor and the locked-LRU executor memo.
 
   * `run_float`    — the f64 float design (the paper's `typ = float`);
   * `run_fixed`    — bit-accurate (alpha, beta) fixed point with
@@ -19,8 +19,13 @@ executor memo.
       compile_interp` over `_run_concrete`), the port of the reference's
       numpy oracle, returning every stage;
 
+  * `run_abstract` — object arrays of Interval / AffineForm per pixel,
+                     on the host (the paper's `typ = Easyval /
+                     yalaa::aff_e_d` switch), the per-pixel analysis that
+                     validates the combined one in `core.range_analysis`;
   * `make_jitted_fixed` — the band-kernel executor of chosen stages;
-  * `make_profile_runner` — ``(image, params) -> float env``.
+  * `make_profile_runner` — ``(image, params) -> float env`` on a
+    device, the profile pass's default runner.
 
 Every backend is bit-identical to the reference's numpy oracle
 `repro.dsl.exec.run_fixed(backend="numpy")` and returns f64 tensors on
@@ -29,15 +34,20 @@ everywhere.
 """
 from __future__ import annotations
 
-import hashlib
 import threading
 from collections import OrderedDict
-from typing import Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core.graph import Pipeline
+from repro_torch import obs
+from repro_torch.analysis.driver import pipeline_content_hash
+from repro_torch.core.absval import Domain, get_domain
+from repro_torch.core.graph import (BinOp, Call, Cmp, Const, Expr, ParamRef,
+                                    Pipeline, Pow, Ref, Select)
+from repro_torch.core.interval import Interval
+from repro_torch.core.range_analysis import static_cmp
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.lowering import backends as B
 
@@ -52,21 +62,10 @@ BACKENDS = ("cuda", "torch", "lowered", "interp")
 _MEMO: "OrderedDict[tuple, Callable]" = OrderedDict()
 _MEMO_LOCK = threading.RLock()
 _MEMO_CAP = 16
-EXEC_CACHE_STATS = {"hits": 0, "misses": 0, "evictions": 0}
-
-
-def pipeline_content_hash(pipeline: Pipeline) -> str:
-    """Stable content hash over stages, params and outputs (the port's
-    copy of `repro.analysis.driver.pipeline_content_hash`)."""
-    h = hashlib.sha256()
-    for name in sorted(pipeline.stages):
-        st = pipeline.stages[name]
-        h.update(repr((st.name, st.inputs, st.stride, st.upsample,
-                       st.is_input, st.input_range, st.expr)).encode())
-    h.update(repr(sorted(pipeline.params.items(),
-                         key=lambda kv: kv[0])).encode())
-    h.update(repr(list(pipeline.outputs)).encode())
-    return h.hexdigest()[:16]
+# executor-memo disposition (an obs counter group: locked, resettable, a
+# dict for its readers), named as the reference's
+EXEC_CACHE_STATS = obs.CounterGroup("lowering.executor_cache",
+                                    hits=0, misses=0, evictions=0)
 
 
 def executor_cache_key(pipeline: Pipeline, types, params: Dict[str, float],
@@ -94,7 +93,7 @@ def set_executor_cache_cap(cap: int) -> int:
         prev, _MEMO_CAP = _MEMO_CAP, cap
         while len(_MEMO) > _MEMO_CAP:
             _MEMO.popitem(last=False)
-            EXEC_CACHE_STATS["evictions"] += 1
+            EXEC_CACHE_STATS.add("evictions")
     return prev
 
 
@@ -120,9 +119,9 @@ def lowered_executor(pipeline: Pipeline, types, params: Dict[str, float],
         fn = _MEMO.get(key)
         if fn is not None:
             _MEMO.move_to_end(key)           # LRU: a hit is a use
-            EXEC_CACHE_STATS["hits"] += 1
+            EXEC_CACHE_STATS.add("hits")
             return fn
-        EXEC_CACHE_STATS["misses"] += 1
+        EXEC_CACHE_STATS.add("misses")
         lp = lower(pipeline, types, params=params, column=column,
                    datapath=datapath)
         if backend in ("cuda", "torch"):
@@ -133,7 +132,7 @@ def lowered_executor(pipeline: Pipeline, types, params: Dict[str, float],
             fn = compile_(lp, outputs=list(pipeline.stages), device=dev)
         while len(_MEMO) >= _MEMO_CAP:
             _MEMO.popitem(last=False)
-            EXEC_CACHE_STATS["evictions"] += 1
+            EXEC_CACHE_STATS.add("evictions")
         _MEMO[key] = fn
         return fn
 
@@ -254,6 +253,137 @@ def run_float(pipeline: Pipeline, image,
                for b in range(len(arrs[0]))]
         return {k: torch.stack([p[k] for p in per]) for k in per[0]}
     return _run_concrete(pipeline, arrs, params or {}, device=device)
+
+
+# ---------------------------------------------------------------------------
+# per-pixel abstract execution (§IV-C framework path), on the host
+# ---------------------------------------------------------------------------
+
+def _pad_objects(env: Dict[str, np.ndarray], stage) -> Dict[str, np.ndarray]:
+    """Edge-pad each input (an object array) of `stage` by its per-axis
+    halo, upsample-expanding first: the oracle's geometry."""
+    hy, hx = stage.halo_yx()
+    uy, ux = stage.upsample
+    padded = {}
+    for name in stage.inputs:
+        a = env[name]
+        if uy > 1 or ux > 1:
+            a = np.repeat(np.repeat(a, uy, axis=0), ux, axis=1)
+        if hy > 0 or hx > 0:
+            a = np.pad(a, ((hy, hy), (hx, hx)), mode="edge")
+        padded[name] = a
+    return padded
+
+
+def run_abstract(pipeline: Pipeline, image_shape, domain: str | Domain = "interval",
+                 input_ranges: Optional[Dict[str, Interval]] = None,
+                 ) -> Dict[str, Dict[str, Any]]:
+    """Run the pipeline with per-pixel abstract values (object arrays).
+
+    Every input pixel is a *fresh* abstract signal over the input range, so
+    affine forms share noise symbols only through genuine reuse of the same
+    pixel — the cancellation-aware analysis the paper gets from YalAA.
+
+    Returns {stage: {"values": object-array, "range": Interval}} where range
+    is the join over all pixels (the per-stage combined range).  Runs on
+    the host by nature (abstract values are Python objects): the port of
+    `repro.dsl.exec.run_abstract`.
+    """
+    dom = get_domain(domain) if isinstance(domain, str) else domain
+    H, W = image_shape
+    env: Dict[str, np.ndarray] = {}
+    ranges: Dict[str, Interval] = {}
+    param_cache: Dict[str, Any] = {}   # one shared signal per scalar parameter
+
+    def abs_u(a): return np.frompyfunc(lambda v: v.abs(), 1, 1)(a)
+    def sqrt_u(a): return np.frompyfunc(lambda v: v.sqrt(), 1, 1)(a)
+    def min_u(a, b): return np.frompyfunc(lambda x, y: x.min_(y), 2, 1)(a, b)
+    def max_u(a, b): return np.frompyfunc(lambda x, y: x.max_(y), 2, 1)(a, b)
+
+    for name in pipeline.topo_order():
+        st = pipeline.stages[name]
+        if st.is_input:
+            rng = (input_ranges or {}).get(name, st.input_range)
+            vals = np.empty((H, W), dtype=object)
+            for i in range(H):
+                for j in range(W):
+                    vals[i, j] = dom.fresh_signal(rng)
+        else:
+            shp = env[st.inputs[0]].shape
+            oh = shp[0] * st.upsample[0]
+            ow = shp[1] * st.upsample[1]
+            padded = _pad_objects(env, st)
+            hy, hx = st.halo_yx()
+
+            def go(n: Expr):
+                if isinstance(n, Const):
+                    return dom.const(n.value)
+                if isinstance(n, ParamRef):
+                    if n.name not in param_cache:
+                        param_cache[n.name] = dom.fresh_signal(pipeline.params[n.name])
+                    return param_cache[n.name]
+                if isinstance(n, Ref):
+                    a = padded[n.stage]
+                    return a[hy + n.dy: hy + n.dy + oh,
+                             hx + n.dx: hx + n.dx + ow]
+                if isinstance(n, BinOp):
+                    l, r = go(n.left), go(n.right)
+                    if n.op == "+":
+                        return l + r
+                    if n.op == "-":
+                        return l - r
+                    if n.op == "*":
+                        return l * r
+                    return l / r
+                if isinstance(n, Pow):
+                    return go(n.base) ** n.n
+                if isinstance(n, Call):
+                    args = [go(a) for a in n.args]
+                    if n.fn == "abs":
+                        return abs_u(args[0])
+                    if n.fn == "sqrt":
+                        return sqrt_u(args[0])
+                    if n.fn == "min":
+                        return min_u(args[0], args[1])
+                    return max_u(args[0], args[1])
+                if isinstance(n, Select):
+                    # abstract select: decide the guard pixel-wise where the
+                    # operand ranges separate, join both branches otherwise
+                    # (mirrors range_analysis.eval_expr_abstract, so the
+                    # combined analysis stays an enclosure of this one)
+                    op = n.cond.op
+
+                    def pick(lv, rv, tv, ov):
+                        taken = static_cmp(op, dom.to_interval(lv),
+                                           dom.to_interval(rv))
+                        if taken is True:
+                            return tv
+                        if taken is False:
+                            return ov
+                        # legacy domains: select() hook without join()
+                        return tv.join(ov) if hasattr(tv, "join") \
+                            else tv.select(tv, ov)
+
+                    return np.frompyfunc(pick, 4, 1)(
+                        go(n.cond.left), go(n.cond.right),
+                        go(n.then), go(n.other))
+                if isinstance(n, Cmp):
+                    raise ValueError("bare Cmp in abstract eval")
+                raise TypeError(type(n))
+
+            vals = go(st.expr)
+            vals = np.asarray(vals, dtype=object)
+            sy, sx = st.stride
+            if sy > 1 or sx > 1:
+                vals = vals[::sy, ::sx]
+
+        # join over pixels -> combined stage range
+        lo = min(dom.to_interval(v).lo for v in vals.ravel())
+        hi = max(dom.to_interval(v).hi for v in vals.ravel())
+        env[name] = vals
+        ranges[name] = Interval(lo, hi)
+
+    return {n: {"values": env[n], "range": ranges[n]} for n in env}
 
 
 def make_profile_runner(pipeline: Pipeline,

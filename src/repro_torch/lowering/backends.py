@@ -41,6 +41,7 @@ from repro_torch.core.graph import (BinOp, Call, Cmp, Const, Expr, ParamRef,
 from repro_torch.core.policy import legalize
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.lowering.ir import LoweredPipeline, LoweredStage, LoweringError
+from repro_torch.lowering.schedule import stage_shapes
 
 Executor = Callable[..., Dict[str, torch.Tensor]]
 
@@ -243,6 +244,33 @@ def needed_stages(lp: LoweredPipeline, outputs: Sequence[str]) -> List[str]:
     return [n for n in lp.order if n in need]
 
 
+def check_stage_shapes(lp: LoweredPipeline, in_shape: Tuple[int, int]
+                       ) -> None:
+    """Raise `LoweringError` where a stage's inputs, each upsampled by the
+    stage, do not meet at the input shape `in_shape`.
+
+    A stage computes the shape of its first input (upsampled); another
+    input may be larger, and is cropped, but not smaller.  The
+    reference's oracle fails there on a numpy broadcast (optical flow's
+    pyramid at an odd height or width: its re-expanded flow has a row or
+    column more than the frame); every executor of the port refuses the
+    shape before it computes anything."""
+    shapes = stage_shapes(lp, tuple(in_shape))
+    for name in lp.order:
+        st = lp.stages[name].stage
+        if len(st.inputs) < 2:
+            continue
+        uy, ux = st.upsample
+        up = {i: (shapes[i][0] * uy, shapes[i][1] * ux) for i in st.inputs}
+        first = st.inputs[0]
+        for other in st.inputs[1:]:
+            if up[other][0] < up[first][0] or up[other][1] < up[first][1]:
+                raise LoweringError(
+                    f"stage {name!r}: its inputs do not meet at input "
+                    f"shape {tuple(in_shape)}: {first!r} gives "
+                    f"{up[first]}, {other!r} gives {up[other]}")
+
+
 def normalize_images(lp: LoweredPipeline, image):
     """run_fixed's input convention: dict / tuple / single array."""
     input_names = lp.pipeline.input_stages()
@@ -439,6 +467,7 @@ def compile_interp(lp: LoweredPipeline,
     def run(image):
         imgs, names = normalize_images(lp, image)
         arrs = [to_f64(im, n) for im, n in zip(imgs, names)]
+        check_stage_shapes(lp, arrs[0].shape[-2:])
         if all(a.ndim == 3 for a in arrs):
             per = [one(dict(zip(names, [a[b] for a in arrs])))
                    for b in range(arrs[0].shape[0])]
@@ -550,6 +579,7 @@ def compile_lowered(lp: LoweredPipeline,
             raise LoweringError(f"images must all be (H, W) or all (B, H, W) "
                                 f"of one shape; got "
                                 f"{[tuple(x.shape) for x in xs]}")
+        check_stage_shapes(lp, xs[0].shape[-2:])
         return forward(dict(zip(names, xs)))
 
     run.lowered = lp

@@ -86,6 +86,7 @@ def compile_cuda(lp: LoweredPipeline, device: DeviceLike = None,
     lock = threading.Lock()
 
     def build(shape) -> List[Tuple[Island, EncodedProgram]]:
+        B.check_stage_shapes(lp, shape[-2:])
         plan = partition_islands(lp, tuple(shape[-2:]), outputs=outs)
         return [(isl, encode_program(island_program(lp, isl)))
                 for isl in plan.islands]

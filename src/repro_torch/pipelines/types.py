@@ -1,11 +1,11 @@
-"""Bit-width designs as plain data: the state a pipeline run carries in.
+"""Bit-width designs: the state a pipeline run carries in.
 
 A design — per-stage (alpha, beta, signedness), plus per-residue phase
 types where the plan split a stage by sampling-lattice residue — plays
-the part weights play for a model.  The reference computes it with its
-range analyses (`repro.pipelines.workflows.static_alphas` and
-`types_from_alpha`, `repro.analysis.BitwidthPlan`); the port reads it as
-data, so serving needs no analysis and no JAX.
+the part weights play for a model.  The port computes designs with its
+own range analyses (`repro_torch.analysis.run_plan`); `design_from_plan`
+turns a plan column into a `DesignTypes`.  Serving reads designs as
+data, a cache of that computation, so it needs no analysis at start-up.
 
 Data shape (the stage entries of `BitwidthPlan.to_json`)::
 
@@ -18,8 +18,11 @@ A residue entry without "beta" takes its stage's beta, as
 `BitwidthPlan.phase_types` does; extra keys ("lo", "hi") are ignored.
 `types/<pipeline>_b4.json` hold the serving benchmark's designs (static
 interval alphas, beta 4 on every stage) for usm, hcd, dus, dus_ext, of
-and of_pyramid.  A reference `BitwidthPlan` with several columns comes
-across whole as `repro_torch.analysis.plan.BitwidthPlan.from_json`.
+and of_pyramid: ``design_from_plan(run_plan(pipe, ["interval"],
+betas={n: 4 for n in pipe.stages}))``, which the tests and
+`chip_smoke.py` hold equal to them.  A reference `BitwidthPlan` with
+several columns comes across whole as
+`repro_torch.analysis.plan.BitwidthPlan.from_json`.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import dataclasses
 import json
 import warnings
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 from repro_torch.core.fixedpoint import FixedPointType
 
@@ -76,6 +79,15 @@ def _fixed(name: str, d: Dict, beta: int) -> FixedPointType:
                       RuntimeWarning, stacklevel=3)
     return FixedPointType(alpha=max(alpha, 1), beta=int(d.get("beta", beta)),
                           signed=bool(d["signed"]))
+
+
+def design_from_plan(plan, column: Optional[str] = None,
+                     betas: Optional[Dict[str, int]] = None) -> DesignTypes:
+    """One column of a `BitwidthPlan` (default: its default column) as a
+    design: its type map and per-residue types, at `betas` (default:
+    the plan's)."""
+    return DesignTypes(plan.types(column, betas),
+                       plan.phase_types(column, betas))
 
 
 def types_from_data(d: Dict) -> DesignTypes:

@@ -14,8 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import analysis as A
 from repro_torch.core.fixedpoint import FixedPointType, alpha_for_range
-from repro_torch.dsl.exec import make_jitted_fixed, run_fixed
+from repro_torch.core.profile import profile_pipeline
+from repro_torch.dsl.exec import (make_jitted_fixed, make_profile_runner,
+                                  run_fixed)
 from repro_torch.kernels.qdq import kernel as QD
 from repro_torch.kernels.qdq import ops as qdq_ops
 from repro_torch.kernels.qmatmul import kernel as QM
@@ -23,10 +26,11 @@ from repro_torch.kernels.qmatmul import ops as qmm_ops
 from repro_torch.kernels.stencil import kernel as K
 from repro_torch.kernels.stencil import ops as st_ops
 from repro_torch.lowering import backends as B
-from repro_torch.lowering import lower, partition_islands
+from repro_torch.lowering import LoweringError, lower, partition_islands
 from repro_torch.lowering.cuda_backend import island_program
 from repro_torch.pipelines import ALL, usm
-from repro_torch.pipelines.types import load_types, types_from_data
+from repro_torch.pipelines.types import (design_from_plan, load_types,
+                                         types_from_data)
 
 pytestmark = pytest.mark.cuda
 
@@ -74,9 +78,10 @@ CASES = [("usm", (48, 48)), ("hcd", (48, 48)), ("dus", (47, 48)),
          # tall single-tile islands whose inputs are read in place
          ("dus_ext", (1, 601, 640)),
          # optical flow: two inputs, divisions, 30 and 19 stages in one
-         # island; odd shapes
+         # island; odd shapes (of_pyramid at an odd half-size width; at an
+         # odd height or width it raises, see below)
          ("of", (2, 48, 48)), ("of", (1, 47, 53)),
-         ("of_pyramid", (2, 48, 48)), ("of_pyramid", (1, 46, 61))]
+         ("of_pyramid", (2, 48, 48)), ("of_pyramid", (1, 46, 62))]
 
 
 @pytest.mark.parametrize("name,shape", CASES,
@@ -85,6 +90,69 @@ CASES = [("usm", (48, 48)), ("hcd", (48, 48)), ("dus", (47, 48)),
 def test_kernel_equals_plain_version(cuda, name, shape):
     _check(ALL[name](), _inputs(name, shape, 5), load_types(name),
            PARAMS.get(name, {}), cuda)
+
+
+@pytest.mark.parametrize("shape", [(47, 48), (1, 46, 61)],
+                         ids=["47x48", "1x46x61"])
+def test_of_pyramid_at_an_odd_size_raises_on_the_card(cuda, shape):
+    """Where the reference's oracle fails on a broadcast, the kernel's
+    executor raises before it launches anything."""
+    before = K.LAUNCHES["fused_band"]
+    for backend in ("cuda", "torch"):
+        with pytest.raises(LoweringError, match="inputs do not meet"):
+            run_fixed(ALL["of_pyramid"](), _inputs("of_pyramid", shape, 5),
+                      load_types("of_pyramid"), backend=backend,
+                      device=cuda)
+    assert K.LAUNCHES["fused_band"] == before
+
+
+def _to(img, dev):
+    if isinstance(img, tuple):
+        return tuple(torch.from_numpy(a).to(dev) for a in img)
+    return torch.from_numpy(img).to(dev)
+
+
+@pytest.mark.parametrize("name", ["usm", "of"])
+def test_profile_pass_on_the_card_equals_the_cpu(cuda, name):
+    """`ProfilePass` reduces each stage on the card; its plan column,
+    and every statistic of `profile_pipeline`, equal the same pass on
+    CPU tensors."""
+    pipe, params = ALL[name](), PARAMS.get(name, {})
+    imgs = [_inputs(name, (120, 176), 40 + 2 * i) for i in range(3)]
+    passes = {dev.type: A.ProfilePass([_to(im, dev) for im in imgs],
+                                      params=params, device=dev)
+              for dev in (cuda, torch.device("cpu"))}
+    # the device is not part of the pass's key: clear the memo between
+    plans = {}
+    for dev, prof in passes.items():
+        A.clear_memo()
+        plans[dev] = A.run_plan(pipe, ["interval", prof,
+                                       A.refine("interval", prof)])
+    A.clear_memo()
+    assert plans["cuda"].to_json() == plans["cpu"].to_json()
+    plans["cuda"].check_nesting(["profile", "interval"])
+    got, want = (profile_pipeline(pipe, passes[d].images,
+                                  make_profile_runner(pipe, device=dev),
+                                  params)
+                 for d, dev in (("cuda", cuda), ("cpu", "cpu")))
+    assert got.alpha_max == want.alpha_max
+    assert got.alpha_avg == want.alpha_avg
+    for n in want.cdf:
+        assert np.array_equal(got.cdf[n][1], want.cdf[n][1]), n
+
+
+@pytest.mark.parametrize("name", ["usm", "of"])
+def test_profile_design_kernel_equals_plain_version(cuda, name):
+    """The profile column's design, the narrowest, saturates on frames
+    outside the profiled ones; the kernel equals its plain version."""
+    pipe, params = ALL[name](), PARAMS.get(name, {})
+    imgs = [_to(_inputs(name, (64, 96), 60 + 2 * i), cuda)
+            for i in range(2)]
+    plan = A.run_plan(pipe, [A.ProfilePass(imgs, params=params,
+                                           device=cuda)],
+                      betas={n: 4 for n in pipe.stages})
+    design = design_from_plan(plan, "profile")
+    _check(pipe, _inputs(name, (2, 200, 264), 70), design, params, cuda)
 
 
 @pytest.mark.parametrize("name", list(ALL))

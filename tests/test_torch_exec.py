@@ -36,9 +36,11 @@ def _assert_outputs_equal(oracle, got, names):
 
 
 # of_pyramid decimates and re-expands both frames, so the reference
-# defines it on even heights only (at 47 rows its upsampled flow has 48)
+# defines it on even heights only (at 47 rows its upsampled flow has 48):
+# `test_of_pyramid_at_an_odd_height_raises_on_every_backend` holds that
 ORACLE_CASES = [(b, s) for b in BENCHES for s in SHAPES
                 if not (b[0] == "of_pyramid" and s[-2] % 2)]
+ODD = [(47, 48), (2, 47, 48)]
 
 
 @pytest.mark.parametrize("bench,shape", ORACLE_CASES,
@@ -53,6 +55,25 @@ def test_torch_backend_equals_the_oracle(bench, shape):
     got = E.run_fixed(port_build(), img, types_from_data(to_data(types)),
                       params, backend="torch", device="cpu")
     _assert_outputs_equal(oracle, got, rpipe.outputs)
+
+
+@pytest.mark.parametrize("shape", ODD,
+                         ids=["x".join(map(str, s)) for s in ODD])
+@pytest.mark.parametrize("backend", E.BACKENDS)
+def test_of_pyramid_at_an_odd_height_raises_on_every_backend(backend,
+                                                             shape):
+    """Where the oracle fails on a broadcast, every backend refuses the
+    shape with a `LoweringError` naming the stage and both shapes."""
+    name, ref_build, port_build, params = BENCHES[5]
+    img = bench_frames(name, shape, 7)
+    with pytest.raises(ValueError):
+        ref_run_fixed(ref_build(), img, ref_types(ref_build()), params)
+    design = types_from_data(to_data(ref_types(ref_build())))
+    with pytest.raises(pl_.LoweringError,
+                       match=r"stage 'Vx1'.* 'Avgx1' gives \(48, 48\), "
+                             r"'Ix' gives \(47, 48\)"):
+        E.run_fixed(port_build(), img, design, params, backend=backend,
+                    device="cpu")
 
 
 @pytest.mark.parametrize("shape", [(48, 48), (3, 48, 48)],

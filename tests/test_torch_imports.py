@@ -34,6 +34,8 @@ def test_port_files_import_neither_jax_nor_repro(path):
 def test_importing_the_port_loads_no_jax_and_no_repro():
     code = ("import sys, repro_torch, repro_torch.serve, "
             "repro_torch.dsl.exec, repro_torch.lowering.cuda_backend, "
+            "repro_torch.obs, repro_torch.analysis, repro_torch.core, "
+            "repro_torch.core.intersect, repro_torch.core.profile, "
             "repro_torch.kernels.stencil.ops, "
             "repro_torch.kernels.qmatmul.ops, repro_torch.kernels.qdq.ops; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -42,6 +44,11 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_the_obs_subpackage_is_checked():
+    assert {p.name for p in PORT_FILES if p.parent.name == "obs"} == \
+        {"__init__.py", "tracer.py", "warnonce.py"}
 
 
 def test_default_device_is_the_card_and_raises_without_one(monkeypatch):

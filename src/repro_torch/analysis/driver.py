@@ -22,7 +22,7 @@ import os
 from typing import Dict, List, Optional, Sequence
 
 from repro_torch import obs
-from repro_torch.core.graph import Pipeline
+from repro_torch.core.graph import Pipeline, pipeline_content_hash
 from repro_torch.core.interval import Interval
 
 from repro_torch.analysis.plan import BitwidthPlan, Provenance
@@ -41,24 +41,6 @@ def clear_memo() -> None:
     _MEMO.clear()
     MEMO_STATS.reset()
     DISK_CACHE_STATS.reset()
-
-
-def pipeline_content_hash(pipeline: Pipeline) -> str:
-    """Stable content hash over stages, params, and outputs.
-
-    Expression trees are frozen dataclasses with deterministic reprs, so
-    the hash changes iff the pipeline's analyzed content changes (a mutated
-    `Pipeline` object re-hashes — the memo never serves stale results).
-    """
-    h = hashlib.sha256()
-    for name in sorted(pipeline.stages):
-        st = pipeline.stages[name]
-        h.update(repr((st.name, st.inputs, st.stride, st.upsample,
-                       st.is_input, st.input_range, st.expr)).encode())
-    h.update(repr(sorted(pipeline.params.items(),
-                         key=lambda kv: kv[0])).encode())
-    h.update(repr(list(pipeline.outputs)).encode())
-    return h.hexdigest()[:16]
 
 
 def _input_ranges_key(input_ranges: Optional[Dict[str, Interval]]) -> str:
@@ -95,7 +77,7 @@ class _Context:
 
 
 def _disk_cache_key(pipe_hash: str, resolved: Sequence[AnalysisPass],
-                    input_ranges, betas, default_column) -> Optional[str]:
+                    input_ranges, betas) -> Optional[str]:
     """Stable cross-process cache key, or None when a pass key is only
     process-local (custom profile runners get a per-process `runner#N`
     identity — caching those on disk would collide across processes)."""
@@ -109,14 +91,12 @@ def _disk_cache_key(pipe_hash: str, resolved: Sequence[AnalysisPass],
         h.update(b"|")
         h.update(k.encode())
     h.update(repr(sorted((betas or {}).items())).encode())
-    h.update((default_column or "").encode())
     return h.hexdigest()[:20]
 
 
 def run_plan(pipeline: Pipeline, passes: Sequence,
              input_ranges: Optional[Dict[str, Interval]] = None,
              betas: Optional[Dict[str, int]] = None,
-             default_column: Optional[str] = None,
              cache_dir: Optional[str] = None) -> BitwidthPlan:
     """Execute the declared pass DAG and collect columns into one plan.
 
@@ -128,7 +108,7 @@ def run_plan(pipeline: Pipeline, passes: Sequence,
     `cache_dir` opts into the disk-backed plan cache: plans serialize
     stably (`BitwidthPlan.to_json`), so CI and benchmark runs reuse
     cross-run analysis results keyed on `pipeline_content_hash` + every
-    pass's content key (+ input ranges, betas, default column).  Passes
+    pass's content key (+ input ranges and betas).  Passes
     with process-local identities (custom profile runners) skip the disk
     cache with a `RuntimeWarning`; the in-process memo still applies.
     """
@@ -138,8 +118,7 @@ def run_plan(pipeline: Pipeline, passes: Sequence,
                   hash=pipe_hash, n_passes=len(resolved)) as sp:
         cache_path = None
         if cache_dir is not None:
-            key = _disk_cache_key(pipe_hash, resolved, input_ranges, betas,
-                                  default_column)
+            key = _disk_cache_key(pipe_hash, resolved, input_ranges, betas)
             if key is None:
                 DISK_CACHE_STATS.add("skips")
                 sp.set(disk_cache="skip")
@@ -173,8 +152,6 @@ def run_plan(pipeline: Pipeline, passes: Sequence,
                             Provenance(pass_name=p.name, spec=p.key(),
                                        notes=list(res.notes)),
                             phases=res.phase_stage_ranges())
-        if default_column:
-            plan.default_column = default_column
         if cache_path is not None:
             os.makedirs(cache_dir, exist_ok=True)
             tmp = cache_path + ".tmp"

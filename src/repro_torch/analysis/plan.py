@@ -161,13 +161,12 @@ class BitwidthPlan:
         return out
 
     # -- plan-level checks ---------------------------------------------------
-    def check_nesting(self, columns: List[str], strict_alpha: bool = True,
-                      ) -> bool:
+    def check_nesting(self, columns: List[str]) -> bool:
         """Soundness-nesting invariant across columns, tightest first.
 
         ``check_nesting(["profile", "smt", "meet(interval,affine)"])``
         asserts per stage that each column's range is enclosed by the next
-        one's (and, with `strict_alpha`, that alphas are non-decreasing) —
+        one's and that alphas are non-decreasing —
         the plan-level form of the paper's profile ⊆ solver ⊆ static
         ordering.  Raises `PlanNestingError` listing every violation.
         """
@@ -180,7 +179,7 @@ class BitwidthPlan:
                 if not b[n].range.encloses(a[n].range):
                     bad.append(f"{n}: {tight} {a[n].range} ⊄ "
                                f"{loose} {b[n].range}")
-                elif strict_alpha and a[n].alpha > b[n].alpha:
+                elif a[n].alpha > b[n].alpha:
                     bad.append(f"{n}: alpha({tight})={a[n].alpha} > "
                                f"alpha({loose})={b[n].alpha}")
         if bad:

@@ -15,6 +15,7 @@ stencil operation here can be expanded in the form of an expression"), with
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.interval import Interval
@@ -252,6 +253,24 @@ class Pipeline:
 
     def __repr__(self) -> str:
         return f"Pipeline({self.name!r}, {len(self.stages)} stages)"
+
+
+def pipeline_content_hash(pipeline: Pipeline) -> str:
+    """Stable content hash over stages, params, and outputs.
+
+    Expression trees are frozen dataclasses with deterministic reprs, so
+    the hash changes iff the pipeline's analyzed content changes (a mutated
+    `Pipeline` object re-hashes — the memo never serves stale results).
+    """
+    h = hashlib.sha256()
+    for name in sorted(pipeline.stages):
+        st = pipeline.stages[name]
+        h.update(repr((st.name, st.inputs, st.stride, st.upsample,
+                       st.is_input, st.input_range, st.expr)).encode())
+    h.update(repr(sorted(pipeline.params.items(),
+                         key=lambda kv: kv[0])).encode())
+    h.update(repr(list(pipeline.outputs)).encode())
+    return h.hexdigest()[:16]
 
 
 def stencil_expr(input_name: str, weights: Sequence[Sequence[float]],

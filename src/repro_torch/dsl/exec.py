@@ -42,10 +42,10 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.analysis.driver import pipeline_content_hash
 from repro_torch.core.absval import Domain, get_domain
 from repro_torch.core.graph import (BinOp, Call, Cmp, Const, Expr, ParamRef,
-                                    Pipeline, Pow, Ref, Select)
+                                    Pipeline, Pow, Ref, Select,
+                                    pipeline_content_hash)
 from repro_torch.core.interval import Interval
 from repro_torch.core.range_analysis import static_cmp
 from repro_torch.device import DeviceLike, resolve_device

@@ -167,11 +167,9 @@ class Tracer:
             out = [s for s in out if s.name == name]
         return sorted(out, key=lambda s: (s.t0, s.span_id))
 
-    def events(self, name: Optional[str] = None) -> List[dict]:
+    def events(self) -> List[dict]:
         with self._lock:
             out = list(self._events)
-        if name is not None:
-            out = [e for e in out if e["name"] == name]
         return sorted(out, key=lambda e: e["ts"])
 
 

@@ -19,8 +19,9 @@ _WARNED: set = set()
 _LOCK = threading.Lock()
 
 
-def warn_once(msg: str, category=RuntimeWarning, stacklevel: int = 3) -> bool:
-    """Emit `msg` as a warning the first time it is seen; no-op after.
+def warn_once(msg: str) -> bool:
+    """Emit `msg` as a `RuntimeWarning` the first time it is seen; no-op
+    after.
 
     Returns True when the warning was emitted (first sighting).
     """
@@ -28,7 +29,7 @@ def warn_once(msg: str, category=RuntimeWarning, stacklevel: int = 3) -> bool:
         if msg in _WARNED:
             return False
         _WARNED.add(msg)
-    warnings.warn(msg, category, stacklevel=stacklevel)
+    warnings.warn(msg, RuntimeWarning, stacklevel=3)
     return True
 
 

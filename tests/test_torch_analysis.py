@@ -34,6 +34,7 @@ from repro_torch.core.range_analysis import alpha_table, analyze, \
 from repro_torch.dsl import exec as E
 from repro_torch.pipelines.types import design_from_plan, load_types
 from test_torch_types import BENCHES, IDS, N_IN
+from _torch_threads import one_torch_thread  # noqa: F401
 
 DOMAINS = ["interval", "affine", "intersect"]
 

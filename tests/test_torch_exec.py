@@ -23,6 +23,7 @@ from repro_torch.lowering import backends as pb
 from repro_torch.pipelines.types import types_from_data
 from test_torch_types import (BENCHES, IDS, bench_frames, frames,
                               phase_plan, plan_design, ref_types, to_data)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = [(48, 48), (47, 48), (3, 48, 48)]
 
@@ -36,11 +37,12 @@ def _assert_outputs_equal(oracle, got, names):
 
 
 # of_pyramid decimates and re-expands both frames, so the reference
-# defines it on even heights only (at 47 rows its upsampled flow has 48):
-# `test_of_pyramid_at_an_odd_height_raises_on_every_backend` holds that
+# defines it on even heights and widths only (at 47 rows its upsampled
+# flow has 48): `test_of_pyramid_at_an_odd_size_raises_on_every_backend`
+# holds that
 ORACLE_CASES = [(b, s) for b in BENCHES for s in SHAPES
-                if not (b[0] == "of_pyramid" and s[-2] % 2)]
-ODD = [(47, 48), (2, 47, 48)]
+                if not (b[0] == "of_pyramid" and (s[-2] % 2 or s[-1] % 2))]
+ODD = [(47, 48), (2, 47, 48), (48, 47), (2, 48, 47)]
 
 
 @pytest.mark.parametrize("bench,shape", ORACLE_CASES,
@@ -60,8 +62,7 @@ def test_torch_backend_equals_the_oracle(bench, shape):
 @pytest.mark.parametrize("shape", ODD,
                          ids=["x".join(map(str, s)) for s in ODD])
 @pytest.mark.parametrize("backend", E.BACKENDS)
-def test_of_pyramid_at_an_odd_height_raises_on_every_backend(backend,
-                                                             shape):
+def test_of_pyramid_at_an_odd_size_raises_on_every_backend(backend, shape):
     """Where the oracle fails on a broadcast, every backend refuses the
     shape with a `LoweringError` naming the stage and both shapes."""
     name, ref_build, port_build, params = BENCHES[5]
@@ -69,9 +70,10 @@ def test_of_pyramid_at_an_odd_height_raises_on_every_backend(backend,
     with pytest.raises(ValueError):
         ref_run_fixed(ref_build(), img, ref_types(ref_build()), params)
     design = types_from_data(to_data(ref_types(ref_build())))
+    h, w = shape[-2:]
     with pytest.raises(pl_.LoweringError,
-                       match=r"stage 'Vx1'.* 'Avgx1' gives \(48, 48\), "
-                             r"'Ix' gives \(47, 48\)"):
+                       match=rf"stage 'Vx1'.* 'Avgx1' gives \(48, 48\), "
+                             rf"'Ix' gives \({h}, {w}\)"):
         E.run_fixed(port_build(), img, design, params, backend=backend,
                     device="cpu")
 

@@ -32,6 +32,7 @@ from repro_torch.pipelines.types import types_from_data
 from test_torch_lowering import _sched_fields
 from test_torch_types import (BENCHES, IDS, bench_frames, ref_types,
                               to_data)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _env_equal(oracle, got, names):

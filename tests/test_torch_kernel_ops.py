@@ -33,6 +33,7 @@ from repro_torch.kernels.qmatmul import kernel as qmm
 from repro_torch.kernels.qmatmul import ops as qmm_ops
 from repro_torch.kernels.stencil import kernel as st
 from repro_torch.kernels.stencil import ops as st_ops
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SOBEL = [[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]]
 BLUR5 = [[a * b for b in (1, 4, 6, 4, 1)] for a in (1, 4, 6, 4, 1)]

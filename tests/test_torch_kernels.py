@@ -33,6 +33,7 @@ from repro_torch.lowering.cuda_backend import island_program
 from repro_torch.pipelines.types import types_from_data
 from test_torch_types import (BENCHES, bench_frames, frames, phase_plan,
                               plan_design, ref_types, to_data)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CU = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / \
     "kernels" / "stencil" / "csrc" / "fused_band.cu"

@@ -17,6 +17,7 @@ from repro.lowering import backends as rb
 from repro_torch.lowering import backends as pb
 from repro_torch.pipelines.types import types_from_data
 from test_torch_types import BENCHES, IDS, ref_types, to_data
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = [(48, 48), (47, 48), (64, 64)]
 

@@ -22,6 +22,7 @@ from repro_torch.pipelines import optical_flow as pof
 from repro_torch.pipelines.types import load_types, types_from_data
 from repro_torch.serve import PipelineServer, serve_offline
 from test_torch_types import bench_frames, ref_types, to_data
+from _torch_threads import one_torch_thread  # noqa: F401
 
 OF = [("of", rof.build, pof.build), ("of_pyramid", rof.build_pyramid,
                                      pof.build_pyramid)]

@@ -11,6 +11,7 @@ from repro.dsl.exec import run_fixed as ref_run_fixed
 from repro_torch.pipelines.types import types_from_data
 from repro_torch.serve import PipelineServer, serve_offline
 from test_torch_types import BENCHES, frames, ref_types, to_data
+from _torch_threads import one_torch_thread  # noqa: F401
 
 NAME, REF_BUILD, PORT_BUILD, PARAMS = BENCHES[0]          # usm
 

@@ -20,6 +20,7 @@ from repro.pipelines import dus, hcd, optical_flow, usm
 from repro.pipelines import workflows as W
 from repro_torch.pipelines.types import (DesignTypes, load_types,
                                          types_from_data)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 # (name, reference builder, port builder, params)
 BENCHES = [

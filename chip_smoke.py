@@ -64,7 +64,28 @@ Phases (any failure raises, and the exit code is not 0):
    launches counted from 0 in one call; for `of`, time the profile's
    statistics on the card against the plain host version
    (`np_alpha_bits` on numpy copies);
-6. print a `{"kernels": [...]}` line, the card's name and power limit,
+6. the design search on the card: `run_design_search` on usm, hcd and
+   dus_ext at 1080x1920 over 2 calibration images of the port's
+   `pipelines.data.image_set`, from a plan of the interval column and a
+   `ProfilePass` of those images on the card, scoring every candidate
+   through the band kernel (``backend="cuda"``, 24 annealing steps,
+   seed 0, every frontier point verified) under the budgets of
+   `benchmarks/run.py:473` `_design_search` (50, 40, 45 dB); print
+   seconds a search, evaluations a second, the frontier's size, the
+   chosen design's power and area against the float design's, the host
+   seconds spent building executors (lowering and encoding, one build a
+   executor-cache miss), and, from a second, traced run of the same
+   search (which must give the same result), the device's busy share
+   and its time in the band kernel, reductions, other kernels and
+   copies; check every frontier point verified and oracle-exact, one
+   band-kernel launch per island per evaluated candidate and per
+   verified point (counts from 0 just before the search), one launch
+   per island for one fresh candidate, the chosen design within its
+   budget and cheaper than the float design in power and area, and the
+   same search at 32x32 on the card equal to the search through the
+   oracle (``backend="interp"``) on the CPU in every field but the
+   measured error;
+7. print a `{"kernels": [...]}` line, the card's name and power limit,
    and, last, `{"ok": true, "device": {...}}`.
 
 Without a CUDA card it exits non-zero before printing any result.
@@ -1252,6 +1273,250 @@ def profile_times(pipe, samples, dev, card) -> dict:
             "profile_host_s": host_s}
 
 
+# phase 6 searches three benchmarks at full width under the budgets of
+# benchmarks/run.py:473 `_design_search`; the calibration images take
+# the seeds of the JAX package's benchmark constructors
+# (src/repro/pipelines/workflows.py: make_usm 23, make_hcd 11,
+# make_dus_ext 37)
+SEARCHED = (("usm", 23, 50.0), ("hcd", 11, 40.0), ("dus_ext", 37, 45.0))
+DSE_ITERS = 24
+DSE_SMALL = (32, 32)
+
+
+def dse_setup(name, seed, shape, dev, params):
+    """(pipeline, params, calibration images, plan) of one search: 2
+    images of the port's `pipelines.data.image_set` and a plan of the
+    interval column and a `ProfilePass` of those images on `dev`."""
+    from repro_torch.analysis import ProfilePass, run_plan
+    from repro_torch.pipelines import ALL
+    from repro_torch.pipelines.data import image_set
+    pipe, p = ALL[name](), params.get(name, {})
+    images = image_set(2, shape, seed)
+    plan = run_plan(pipe, ["interval",
+                           ProfilePass(images, params=p, device=dev)])
+    return pipe, p, images, plan
+
+
+def dse_reset() -> None:
+    """Counts and caches of the search from 0: the executor cache (every
+    candidate builds its executor anew) and the dse counters."""
+    from repro_torch.dse import DSE_STATS
+    from repro_torch.dsl.exec import EXEC_CACHE_STATS, clear_executor_cache
+    clear_executor_cache()
+    EXEC_CACHE_STATS.reset()
+    DSE_STATS.reset()
+
+
+def discrete(res) -> dict:
+    """A search's result without its measured error (psnr, max_abs_err
+    of each point): alphas, betas, strategies, meets_budget, costs,
+    evaluations, clusters."""
+    d = res.to_json_dict()
+    for p in d["frontier"]["points"] + [d["chosen"] or {}]:
+        p.pop("psnr", None)
+        p.pop("max_abs_err", None)
+    return d
+
+
+def psnr_rel(a, b) -> float:
+    """Largest relative difference of two equal searches' PSNRs."""
+    return max([abs(p.psnr - q.psnr) / abs(q.psnr) for p, q in
+                zip(a.frontier.points(), b.frontier.points())], default=0.0)
+
+
+def device_split(prof, path, window) -> dict:
+    """From `prof`'s trace (written to `path`): the wall ms of the
+    `window` annotation, the device's busy ms in it, and device ms (and
+    kernel count) by kind: the band kernel, reductions, other kernels,
+    copies."""
+    prof.export_chrome_trace(str(path))
+    spans = [e for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("ph") == "X"]
+    win, = [(e["ts"], e["ts"] + e["dur"]) for e in spans
+            if e["name"] == window and e.get("cat") == "user_annotation"]
+    kinds = {"fused_band": [], "reductions": [], "other kernels": [],
+             "copies": []}
+    for e in spans:
+        cat, name = e.get("cat"), e["name"]
+        a, b = max(e["ts"], win[0]), min(e["ts"] + e["dur"], win[1])
+        if b <= a or cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        if cat != "kernel":
+            kind = "copies"
+        elif "fused_band" in name:
+            kind = "fused_band"
+        elif "reduce" in name:
+            kind = "reductions"
+        else:
+            kind = "other kernels"
+        kinds[kind].append((a, b))
+    every = [s for v in kinds.values() for s in v]
+    return {"wall_ms": (win[1] - win[0]) / 1e3, "busy_ms": busy_ms(every),
+            "ms": {k: busy_ms(v) for k, v in kinds.items()},
+            "count": {k: len(v) for k, v in kinds.items()}}
+
+
+def design_search_on_the_card(dev, card, params) -> dict:
+    """Phase 6: `run_design_search` on each of `SEARCHED` at 1080x1920
+    through the band kernel (see the module docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch import obs
+    from repro_torch.analysis import clear_memo
+    from repro_torch.core import cost_model
+    from repro_torch.dse import (DSE_STATS, ErrorBudget, Evaluator,
+                                 run_design_search, seed_alphas)
+    from repro_torch.dsl.exec import EXEC_CACHE_STATS, clear_executor_cache
+    from repro_torch.kernels.stencil import kernel as K
+    from repro_torch.lowering import lower, partition_islands
+    out = {}
+    trace = ROOT / "chiprun_out" / "dse_trace.json"
+    trace.parent.mkdir(exist_ok=True)
+    for name, seed, min_psnr in SEARCHED:
+        clear_memo()
+        pipe, p, images, plan = dse_setup(name, seed, FRAME, dev, params)
+        budget = ErrorBudget(min_psnr=min_psnr)
+        kw = dict(params=p, seed=0, anneal_iters=DSE_ITERS, backend="cuda",
+                  device=dev, verify=True)
+
+        # (a) the search, timed, band-kernel launches counted from 0
+        dse_reset()
+        torch.cuda.synchronize()
+        K.LAUNCHES["fused_band"] = 0
+        with obs.tracing() as tr:
+            t0 = time.perf_counter()
+            res = run_design_search(pipe, plan, images, budget, **kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches = K.LAUNCHES["fused_band"]
+        misses, evaluated = EXEC_CACHE_STATS["misses"], DSE_STATS["evaluated"]
+        host_s = {k: sum(s.t1 - s.t0 for s in tr.spans(k))
+                  for k in ("lowering.lower", "lowering.encode",
+                            "dse.evaluate")}
+        pts = res.frontier.points()
+        bad = [q.strategy for q in pts if not (q.verified
+                                                and q.oracle_exact)]
+        assert not bad, f"{name}: frontier points not verified or not " \
+                        f"oracle-exact, from {bad}"
+        assert evaluated == res.evaluations
+
+        # one launch per island: for every evaluated candidate and every
+        # verified point, and for one fresh candidate counted alone
+        if res.chosen is not None:
+            a, b = res.chosen.alphas, res.chosen.betas
+        else:
+            a, b = seed_alphas(plan), res.beta_result.betas
+        ev = Evaluator(pipe, plan.signed(res.plan_column), images, budget,
+                       params=p, backend="cuda", device=dev)
+        n_isl = len(partition_islands(lower(pipe, ev.types_of(a, b),
+                                            params=p), FRAME).islands)
+        assert launches == n_isl * (evaluated + len(pts)), \
+            (f"{name}: {launches} band-kernel launches for {evaluated} "
+             f"candidates and {len(pts)} verified points of {n_isl} "
+             f"island(s)")
+        clear_executor_cache()
+        torch.cuda.synchronize()
+        K.LAUNCHES["fused_band"] = 0
+        ev.evaluate(a, b, strategy="fresh")
+        torch.cuda.synchronize()
+        fresh = K.LAUNCHES["fused_band"]
+        assert fresh == n_isl, f"{name}: {fresh} launches for one fresh " \
+                               f"candidate of {n_isl} island(s)"
+
+        # the chosen design against the float design (the JAX
+        # benchmark's gate)
+        flt = cost_model.design_cost(pipe, cost_model.float_design(pipe))
+        flt_area = flt.lut_bits + flt.dsp_bits
+        ch = res.chosen
+        if ch is not None:
+            assert ch.meets_budget and ch.power < flt.power_proxy \
+                and ch.area < flt_area, \
+                (f"{name}: the chosen design (power {ch.power}, area "
+                 f"{ch.area}) does not beat the float design (power "
+                 f"{flt.power_proxy}, area {flt_area}) within budget")
+
+        # (b) the same search once more under torch.profiler: the same
+        # result, and where the device's time went
+        dse_reset()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("chip_smoke.dse"):
+                again = run_design_search(pipe, plan, images, budget, **kw)
+                torch.cuda.synchronize()
+        assert again.to_json_dict() == res.to_json_dict(), \
+            f"{name}: a second search gave another result"
+        split = device_split(prof, trace, "chip_smoke.dse")
+
+        # (c) the same search at 32x32: on the card == the oracle on the
+        # CPU in every field but the measured error
+        clear_memo()
+        s_pipe, _, s_imgs, s_plan = dse_setup(name, seed, DSE_SMALL, "cpu",
+                                              params)
+        dse_reset()
+        card_res = run_design_search(s_pipe, s_plan, s_imgs, budget, **kw)
+        dse_reset()
+        cpu_res = run_design_search(s_pipe, s_plan, s_imgs, budget,
+                                    **dict(kw, backend="interp",
+                                           device="cpu"))
+        assert discrete(card_res) == discrete(cpu_res), \
+            f"{name}: the 32x32 search on the card != the oracle's on the CPU"
+        small_rel = psnr_rel(card_res, cpu_res)
+
+        row = {"seconds": secs, "evaluations": res.evaluations,
+               "evaluations_per_s": res.evaluations / secs,
+               "frontier": len(pts),
+               "chosen": None if ch is None else {
+                   "psnr": ch.psnr, "power_vs_float": ch.power
+                   / flt.power_proxy, "area_vs_float": ch.area / flt_area},
+               "build_s": host_s["lowering.lower"]
+               + host_s["lowering.encode"],
+               "lower_s": host_s["lowering.lower"],
+               "encode_s": host_s["lowering.encode"],
+               "evaluate_s": host_s["dse.evaluate"],
+               "executor_misses": misses, "islands": n_isl,
+               "launches": launches, "fresh_launches": fresh,
+               "traced": split,
+               "small_32x32": {"evaluations": card_res.evaluations,
+                               "frontier": len(card_res.frontier),
+                               "psnr_rel_diff": small_rel}}
+        out[name] = row
+        ms = split["ms"]
+        chosen = "no design chosen" if ch is None else (
+            f"chosen design {ch.psnr:.4f} dB, power "
+            f"{row['chosen']['power_vs_float']:.4f} and area "
+            f"{row['chosen']['area_vs_float']:.4f} of the float design's")
+        print(f"design search {name} 2x{FRAME[0]}x{FRAME[1]}, budget "
+              f"{min_psnr} dB ({card}): {secs:.4f} s, {res.evaluations} "
+              f"evaluations ({row['evaluations_per_s']:.2f}/s), frontier "
+              f"{len(pts)} (all verified, oracle-exact), {chosen}; host: "
+              f"lowering {host_s['lowering.lower']:.4f} s + encoding "
+              f"{host_s['lowering.encode']:.4f} s over {misses} executor "
+              f"builds, evaluations {host_s['dse.evaluate']:.4f} s; "
+              f"fused_band {launches} launches = {n_isl} island(s) x "
+              f"({evaluated} candidates + {len(pts)} verified), {fresh} "
+              f"for one fresh candidate", flush=True)
+        print(f"design search {name} traced ({card}): window "
+              f"{split['wall_ms']:.3f} ms, device busy "
+              f"{split['busy_ms']:.3f} ms "
+              f"({100 * split['busy_ms'] / split['wall_ms']:.2f}%); "
+              f"fused_band {ms['fused_band']:.3f} ms "
+              f"({split['count']['fused_band']}), reductions "
+              f"{ms['reductions']:.3f} ms ({split['count']['reductions']}), "
+              f"other kernels {ms['other kernels']:.3f} ms "
+              f"({split['count']['other kernels']}), copies "
+              f"{ms['copies']:.3f} ms ({split['count']['copies']}); same "
+              f"result as the timed search", flush=True)
+        print(f"design search {name} {DSE_SMALL[0]}x{DSE_SMALL[1]}: card "
+              f"(cuda) == CPU oracle (interp) in every field but the "
+              f"measured error, {card_res.evaluations} evaluations, "
+              f"frontier {len(card_res.frontier)}, PSNR relative "
+              f"difference at most {small_rel}", flush=True)
+    clear_memo()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1338,7 +1603,10 @@ def main() -> int:
     # -- 5. analysis on the card --------------------------------------------
     analysis = analysis_on_the_card(dev, card, params)
 
-    # -- 6. result lines ---------------------------------------------------
+    # -- 6. the design search on the card -----------------------------------
+    design_search = design_search_on_the_card(dev, card, params)
+
+    # -- 7. result lines ---------------------------------------------------
     usm_t = band["usm"]
     print(json.dumps({"kernels": [{
         "name": "fused_band", "route": "cuda",
@@ -1351,7 +1619,8 @@ def main() -> int:
         "pipelines": {n: {k: v for k, v in t.items() if k != "split_ms"}
                       for n, t in band.items()},
         "serving": {"usm": served, "of": flow},
-        "analysis": analysis}] + library_rows}))
+        "analysis": analysis, "design_search": design_search}]
+        + library_rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,8 +38,16 @@ class LegalizedType:
     shift: int                       # binary point position = fp.beta
 
     @property
+    def bits(self) -> int:
+        return CONTAINERS[self.container][0]
+
+    @property
     def dtype(self) -> torch.dtype:
         return CONTAINERS[self.container][1]
+
+    @property
+    def bytes(self) -> float:
+        return self.bits / 8.0
 
 
 def legalize(t: Optional[FixedPointType]) -> LegalizedType:
@@ -58,3 +66,9 @@ def legalize(t: Optional[FixedPointType]) -> LegalizedType:
         # fall back to float32, as the paper falls back to wider types
         return LegalizedType(fp=None, container="float32", shift=0)
     return LegalizedType(fp=t, container=c, shift=t.beta)
+
+
+def container_bytes(t: Optional[FixedPointType]) -> float:
+    """Bytes a stored element of type `t` takes (the cost model's
+    memory-traffic proxy)."""
+    return legalize(t).bytes

@@ -122,8 +122,11 @@ def lowered_executor(pipeline: Pipeline, types, params: Dict[str, float],
             EXEC_CACHE_STATS.add("hits")
             return fn
         EXEC_CACHE_STATS.add("misses")
-        lp = lower(pipeline, types, params=params, column=column,
-                   datapath=datapath)
+        with obs.span("lowering.lower", pipeline=pipeline.name,
+                      column=column, n_stages=len(pipeline.stages),
+                      datapath=datapath):
+            lp = lower(pipeline, types, params=params, column=column,
+                       datapath=datapath)
         if backend in ("cuda", "torch"):
             fn = compile_cuda(lp, device=dev, plain=backend == "torch")
         else:

@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.stencil.kernel import (EncodedProgram,
                                                 encode_program,
@@ -116,7 +117,9 @@ def compile_cuda(lp: LoweredPipeline, device: DeviceLike = None,
         batch = shape[0] if len(shape) == 3 else None
         with lock:
             if shape not in cache:
-                cache[shape] = build(shape)
+                with obs.span("lowering.encode", pipeline=lp.pipeline.name,
+                              shape=shape):
+                    cache[shape] = build(shape)
             compiled = cache[shape]
         for isl, enc in compiled:
             call = kernel(enc, isl.schedule.grid, batch)

@@ -17,8 +17,9 @@ import torch
 from repro_torch import analysis as A
 from repro_torch.core.fixedpoint import FixedPointType, alpha_for_range
 from repro_torch.core.profile import profile_pipeline
-from repro_torch.dsl.exec import (make_jitted_fixed, make_profile_runner,
-                                  run_fixed)
+from repro_torch.dse import ErrorBudget, Evaluator, run_design_search
+from repro_torch.dsl.exec import (clear_executor_cache, make_jitted_fixed,
+                                  make_profile_runner, run_fixed)
 from repro_torch.kernels.qdq import kernel as QD
 from repro_torch.kernels.qdq import ops as qdq_ops
 from repro_torch.kernels.qmatmul import kernel as QM
@@ -29,6 +30,7 @@ from repro_torch.lowering import backends as B
 from repro_torch.lowering import LoweringError, lower, partition_islands
 from repro_torch.lowering.cuda_backend import island_program
 from repro_torch.pipelines import ALL, usm
+from repro_torch.pipelines.data import image_set
 from repro_torch.pipelines.types import (design_from_plan, load_types,
                                          types_from_data)
 
@@ -601,3 +603,82 @@ def test_front_ends_on_the_card_equal_the_cpu(cuda):
         _same(st_ops.stencil_fixed(img, SOBEL, 1 / 12, tin2, tout).cpu(),
               st_ops.stencil_fixed(img, SOBEL, 1 / 12, tin2, tout,
                                    device="cpu"))
+
+
+# ---------------------------------------------------------------------------
+# the design search on the card
+# ---------------------------------------------------------------------------
+
+# (pipeline, calibration-image seed, budget in dB), as chip_smoke.py's
+# phase 6 at 32x32
+SEARCHES = [("usm", 23, 50.0), ("dus_ext", 37, 45.0), ("hcd", 11, 40.0)]
+
+
+def _dse_setup(name, seed, shape=(32, 32)):
+    """A pipeline, its params, 2 calibration images and a plan of the
+    interval column and a CPU profile of those images."""
+    pipe, params = ALL[name](), PARAMS.get(name, {})
+    images = image_set(2, shape, seed)
+    A.clear_memo()
+    plan = A.run_plan(pipe, ["interval", A.ProfilePass(
+        images, params=params, device="cpu")])
+    return pipe, params, images, plan
+
+
+def _discrete(res):
+    """A search's JSON without its measured error."""
+    d = res.to_json_dict()
+    for p in d["frontier"]["points"] + [d["chosen"] or {}]:
+        p.pop("psnr", None)
+        p.pop("max_abs_err", None)
+    return d
+
+
+@pytest.mark.parametrize("name,seed,min_psnr", SEARCHES[:2],
+                         ids=[c[0] for c in SEARCHES[:2]])
+def test_design_search_on_the_card_equals_the_cpu_oracle(cuda, name, seed,
+                                                         min_psnr):
+    """Every candidate scored by the band kernel on the card: the search
+    equals the one through the oracle on the CPU in every field but the
+    measured error, and every frontier point is verified (the kernel
+    re-score bit for bit, the oracle cross-check exact)."""
+    pipe, params, images, plan = _dse_setup(name, seed)
+    kw = dict(params=params, seed=0, anneal_iters=24, verify=True)
+    card = run_design_search(pipe, plan, images, ErrorBudget(min_psnr),
+                             backend="cuda", device=cuda, **kw)
+    cpu = run_design_search(pipe, plan, images, ErrorBudget(min_psnr),
+                            backend="interp", device="cpu", **kw)
+    assert _discrete(card) == _discrete(cpu)
+    pts = card.frontier.points()
+    assert pts and all(p.verified and p.oracle_exact for p in pts)
+    for p, q in zip(pts, cpu.frontier.points()):
+        assert abs(p.psnr - q.psnr) <= 1e-9 * abs(q.psnr)
+
+
+@pytest.mark.parametrize("name,seed,min_psnr", SEARCHES,
+                         ids=[c[0] for c in SEARCHES])
+def test_one_band_launch_per_island_per_fresh_candidate(cuda, name, seed,
+                                                        min_psnr):
+    """A candidate scores all calibration images in one batch: one
+    `fused_band` launch per rate island, counted from 0; a candidate
+    already scored launches nothing."""
+    pipe, params, images, plan = _dse_setup(name, seed)
+    ev = Evaluator(pipe, plan.signed(), images, ErrorBudget(min_psnr),
+                   params=params, device=cuda)
+    rng = np.random.default_rng(seed)
+    sound = plan.alphas()
+    for _ in range(3):
+        a = {n: max(int(v + rng.integers(-2, 1)), 1)
+             for n, v in sound.items()}
+        b = {n: int(rng.integers(0, 9)) for n in sound}
+        islands = partition_islands(lower(pipe, ev.types_of(a, b),
+                                          params=params), (32, 32)).islands
+        clear_executor_cache()
+        torch.cuda.synchronize()
+        K.LAUNCHES["fused_band"] = 0
+        ev.evaluate(a, b)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["fused_band"] == len(islands)
+        K.LAUNCHES["fused_band"] = 0
+        ev.evaluate(a, b)
+        assert K.LAUNCHES["fused_band"] == 0

@@ -37,7 +37,10 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.obs, repro_torch.analysis, repro_torch.core, "
             "repro_torch.core.intersect, repro_torch.core.profile, "
             "repro_torch.kernels.stencil.ops, "
-            "repro_torch.kernels.qmatmul.ops, repro_torch.kernels.qdq.ops; "
+            "repro_torch.kernels.qmatmul.ops, repro_torch.kernels.qdq.ops, "
+            "repro_torch.dse, repro_torch.core.cost_model, "
+            "repro_torch.core.beta_search, repro_torch.pipelines.data, "
+            "repro_torch.pipelines.metrics; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -49,6 +52,12 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
 def test_the_obs_subpackage_is_checked():
     assert {p.name for p in PORT_FILES if p.parent.name == "obs"} == \
         {"__init__.py", "tracer.py", "warnonce.py"}
+
+
+def test_the_dse_subpackage_is_checked():
+    assert {p.name for p in PORT_FILES if p.parent.name == "dse"} == \
+        {"__init__.py", "betas.py", "driver.py", "evaluate.py",
+         "frontier.py", "strategies.py"}
 
 
 def test_default_device_is_the_card_and_raises_without_one(monkeypatch):

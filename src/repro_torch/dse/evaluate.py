@@ -95,7 +95,7 @@ def _stack(frames, device: torch.device) -> torch.Tensor:
                         for f in frames]).to(device)
 
 
-def calibration_batch(images: Sequence, device: torch.device):
+def _calibration_batch(images: Sequence, device: torch.device):
     """The calibration images as one batch on `device`: a (B, H, W) f64
     tensor, or a tuple of them (one per input stage) for frame pairs."""
     first = images[0]
@@ -130,7 +130,6 @@ class Evaluator:
         self.device = resolve_device(device)
         self.pipeline = pipeline
         self.signed = dict(signed)
-        self.images = list(images)
         self.budget = budget
         self.params = dict(params or {})
         self.image_width = image_width
@@ -144,7 +143,7 @@ class Evaluator:
         # output, computed once on the device; per-output peak = the
         # reference's own max magnitude (so deep-integer outputs like
         # HCD's `harris` are scored on their real scale, not [0, 255])
-        self.batch = calibration_batch(self.images, self.device)
+        self.batch = _calibration_batch(list(images), self.device)
         env = run_float(pipeline, self.batch, self.params,
                         device=self.device)
         self.refs = {o: env[o] for o in self.outputs}

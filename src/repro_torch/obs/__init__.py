@@ -1,8 +1,10 @@
-"""`repro_torch.obs` — tracing and counters for the analysis driver.
+"""`repro_torch.obs` — tracing and counters for the analysis driver,
+the design search and the executor cache.
 
-Port of the part of `repro.obs` that `analysis.driver` uses: spans,
-events and counter groups (`tracer`) and the process-once warning
-(`warnonce`)::
+Port of the part of `repro.obs` that `analysis.driver`, `dse` and
+`dsl.exec` use: spans (`analysis.pass`, `dse.search`, `dse.evaluate`,
+`lowering.lower`, `lowering.encode`, ...), events and counter groups
+(`tracer`) and the process-once warning (`warnonce`)::
 
     from repro_torch import obs
     with obs.tracing() as tr:

@@ -48,7 +48,7 @@ from repro_torch.analysis import clear_memo
 from repro_torch.analysis.plan import BitwidthPlan
 from repro_torch.core import beta_search as bs
 from repro_torch.core import cost_model as cm
-from repro_torch.core.fixedpoint import FixedPointType, alpha_for_range
+from repro_torch.core.fixedpoint import alpha_for_range
 from repro_torch.dse import (DSE_STATS, PSNR_CAP, DesignPoint, ErrorBudget,
                              Evaluator, Frontier, output_stages, psnr_of,
                              run_design_search, search_betas, seed_alphas)

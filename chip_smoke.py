@@ -85,7 +85,25 @@ Phases (any failure raises, and the exit code is not 0):
    same search at 32x32 on the card equal to the search through the
    oracle (``backend="interp"``) on the CPU in every field but the
    measured error;
-7. print a `{"kernels": [...]}` line, the card's name and power limit,
+7. the SMT range analysis on the card: for each of the six benchmarks
+   at 1080x1920, `run_plan` over interval, the phase-5 `ProfilePass`
+   (the same samples) and "smt" at the default `SMTConfig` (30 s a
+   pipeline), its batched engine on the card (dus and dus_ext also
+   "smt-phase-split"); print seconds and boxes a pass, the stages that
+   kept their seed when the budget ran out and the sum of alphas a
+   column, and check profile ⊆ smt ⊆ interval; run every SMT design
+   (the phase-split ones through their residue types) through the band
+   kernel at 4x1080x1920 on fresh frames, `torch.equal` to the plain
+   version, with launches counted from 0 in one call; run `analyze_smt`
+   deadline-free at the default node budgets on usm, dus and dus_ext on
+   the card and on the CPU, printing seconds and boxes a second of each,
+   and check every stage's range equal on both (a difference is printed
+   with its stage and the first op of its CSP that differs, and fails
+   the run); run the SMT column at the default budget on the host's CPU
+   for hcd, of and of_pyramid (whose card runs reach the deadline) and
+   print its seconds, boxes, seed-kept stages and sum of alphas beside
+   the card's; print the phase's seconds;
+8. print a `{"kernels": [...]}` line, the card's name and power limit,
    and, last, `{"ok": true, "device": {...}}`.
 
 Without a CUDA card it exits non-zero before printing any result.
@@ -1517,6 +1535,223 @@ def design_search_on_the_card(dev, card, params) -> dict:
     return out
 
 
+# phase 7 runs the SMT analysis on every benchmark at the default
+# `SMTConfig` (a 30 s budget a pipeline) beside interval and the phase-5
+# profile (the same samples); dus and dus_ext also phase-split
+SMT_PHASES = ("dus", "dus_ext")
+# ... and holds the card's engine to the CPU's, deadline-free at the
+# default node budgets
+SMT_CPU_CHECK = ("usm", "dus", "dus_ext")
+# ... and runs the SMT column at the default budget on the host's CPU
+# too where the card's run reaches the deadline: the alphas the
+# engine's speed decides
+SMT_CPU_BUDGET = ("hcd", "of", "of_pyramid")
+
+
+def smt_pass_stats(tr) -> dict:
+    """Per SMT column of one traced `run_plan`: the seconds its pass took
+    and the boxes its stages explored (`smt.stage` spans under it)."""
+    by_id = {s.span_id: s for s in tr.spans()}
+
+    def column_of(sp):
+        while sp is not None and sp.name != "analysis.pass":
+            sp = by_id.get(sp.parent_id)
+        return None if sp is None else sp.attrs.get("column")
+
+    out = {}
+    for sp in tr.spans("analysis.pass"):
+        out[sp.attrs["column"]] = {"s": sp.t1 - sp.t0, "boxes": 0}
+    for sp in tr.spans("smt.stage"):
+        out[column_of(sp)]["boxes"] += sp.attrs.get("boxes", 0)
+    return out
+
+
+def smt_divergence(pipe, stage, bounds, dev) -> str:
+    """Where the card's engine first leaves the CPU's on `stage`: one
+    forward sweep of its op table over a seeded frontier on both devices,
+    def by def; the first def whose bounds differ, with its op."""
+    import numpy as np
+    import torch
+
+    from repro_torch.smt import encoder as E
+    from repro_torch.smt import solver as S
+    csp, _ = E.encode_stage(pipe, stage, bounds)
+    prog = E.compile_csp(csp)
+    rng = np.random.default_rng(0)
+    lo0 = np.where(np.isfinite(prog.init_lo), prog.init_lo, -1e3)
+    hi0 = np.where(np.isfinite(prog.init_hi), prog.init_hi, 1e3)
+    u = np.sort(rng.random((2, 64, prog.nvars)), axis=0)
+    lo = lo0 + (hi0 - lo0) * u[0]
+    hi = lo0 + (hi0 - lo0) * u[1]
+    ops = {v: k for k, v in E.OPCODES.items()}
+    cols = {}
+    for d in (dev, torch.device("cpu")):
+        dp = E.device_program(prog, d)
+        tlo, thi = torch.from_numpy(lo).to(d), torch.from_numpy(hi).to(d)
+        cols[d.type] = [tuple(t.cpu().numpy() for t in
+                              S._b_forward(dp, k, tlo, thi))
+                        for k in range(prog.ndefs)]
+    for k, (a, b) in enumerate(zip(cols[dev.type], cols["cpu"])):
+        for x, y in zip(a, b):
+            x, y = np.broadcast_to(x, (64,)), np.broadcast_to(y, (64,))
+            if not (np.array_equal(np.isnan(x), np.isnan(y)) and
+                    np.array_equal(x[~np.isnan(x)].view(np.int64),
+                                   y[~np.isnan(y)].view(np.int64))):
+                return (f"def {k} ({ops[int(prog.opcode[k])]}, pow "
+                        f"{int(prog.pow_n[k])}) of {stage}'s CSP")
+    return f"no def of {stage}'s forward sweep differs"
+
+
+def smt_on_the_card(dev, card, params) -> dict:
+    """Phase 7: (a) for each pipeline of `ANALYZED` at 1080x1920,
+    `run_plan` over interval, the phase-5 `ProfilePass` (the same
+    samples, on the card) and "smt" at the default `SMTConfig` (and
+    "smt-phase-split" on `SMT_PHASES`), the batched engine on the card:
+    seconds and boxes a pass, the stages that kept their seed when the
+    budget ran out, the sum of alphas a column, and profile ⊆ smt ⊆
+    interval; (b) each SMT design through the band kernel at
+    4x1080x1920 on fresh frames, `torch.equal` to the plain version,
+    with the kernel's launches counted from 0 in one call; (c)
+    `analyze_smt` deadline-free at the default node budgets on
+    `SMT_CPU_CHECK`, on the card and on the CPU: seconds, boxes a
+    second, and every stage's range equal on both; (d) the SMT column
+    at the default `SMTConfig` on the host's CPU for `SMT_CPU_BUDGET`,
+    whose card runs reach the deadline: seconds, boxes, stages that
+    kept their seed and the sum of alphas beside the card's."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.analysis import (ProfilePass, clear_memo, make_pass,
+                                      run_plan)
+    from repro_torch.dsl.exec import run_fixed
+    from repro_torch.kernels.stencil import kernel as K
+    from repro_torch.pipelines import ALL
+    from repro_torch.pipelines.types import design_from_plan
+    from repro_torch.smt import SMTConfig, analyze_smt
+    from repro_torch.smt import solver as S
+    t_phase = time.perf_counter()
+    out = {"pipelines": {}, "card_vs_cpu": {}}
+    clear_memo()
+    for k, name in enumerate(ANALYZED):
+        pipe, p = ALL[name](), params.get(name, {})
+        samples = [on_card(inputs(name, FRAME, 300 + 10 * k + 2 * i), dev)
+                   for i in range(4)]
+        passes = ["interval", ProfilePass(samples, params=p, device=dev),
+                  make_pass("smt", device=dev)]
+        cols = ["smt"]
+        if name in SMT_PHASES:
+            passes.append(make_pass("smt-phase-split", device=dev))
+            cols.append("smt-phase-split")
+        with obs.tracing() as tr:
+            plan = run_plan(pipe, passes, betas={n: 4 for n in pipe.stages})
+        stats = smt_pass_stats(tr)
+        sums = {c: sum(plan.alphas(c).values()) for c in plan.columns}
+        for c in cols:
+            plan.check_nesting(["profile", c, "interval"])
+        starved = {c: [n for note in plan.provenance[c].notes
+                       if note.startswith("budget-exhausted")
+                       for n in note.split(": ", 1)[1].split(", ")]
+                   for c in cols}
+        row = {"pass_s": {c: v["s"] for c, v in stats.items()},
+               "boxes": {c: stats[c]["boxes"] for c in cols},
+               "budget_exhausted": starved, "alpha_sums": sums,
+               "designs": {}}
+        for c in cols:
+            print(f"smt {name} {FRAME[0]}x{FRAME[1]} column {c} ({card}): "
+                  f"{stats[c]['s']:.4f} s, {stats[c]['boxes']} boxes "
+                  f"({stats[c]['boxes'] / stats[c]['s']:.1f}/s), stages "
+                  f"that kept their seed at the 30 s budget: "
+                  f"{starved[c] or 'none'}; sum of alphas profile "
+                  f"{sums['profile']} / {c} {sums[c]} / interval "
+                  f"{sums['interval']}; profile ⊆ {c} ⊆ interval holds",
+                  flush=True)
+        img = inputs(name, (4,) + FRAME, 700 + 2 * k)
+        for c in cols:
+            design = design_from_plan(plan, c)
+            run_fixed(pipe, img, design, p, backend="cuda", device=dev)
+            torch.cuda.synchronize()
+            K.LAUNCHES["fused_band"] = 0
+            got = run_fixed(pipe, img, design, p, backend="cuda",
+                            device=dev)
+            torch.cuda.synchronize()
+            launches = K.LAUNCHES["fused_band"]
+            assert launches > 0, f"{name} {c}: the kernel never launched"
+            want = run_fixed(pipe, img, design, p, backend="torch",
+                             device=dev)
+            for n in pipe.outputs:
+                assert got[n].shape[0] == 4 and torch.isfinite(got[n]).all()
+                if not torch.equal(got[n], want[n]):
+                    raise AssertionError(f"{name} {c} design: kernel != "
+                                         f"plain version on {n}")
+            row["designs"][c] = {"launches": launches,
+                                 "phase_stages": sorted(design.phases)}
+            print(f"smt {name} {c} design 4x{FRAME[0]}x{FRAME[1]} ({card}): "
+                  f"kernel == plain version, {launches} launch(es) counted "
+                  f"in one call; residue types on "
+                  f"{sorted(design.phases) or 'no stage'}", flush=True)
+        out["pipelines"][name] = row
+        clear_memo()
+    cfg = SMTConfig(time_budget_s=float("inf"))
+    for name in SMT_CPU_CHECK:
+        res, row = {}, {}
+        for d in (dev, torch.device("cpu")):
+            S.STATS.reset()
+            t0 = time.perf_counter()
+            res[d.type] = analyze_smt(ALL[name](), config=cfg, device=d)
+            secs = time.perf_counter() - t0
+            row[d.type] = {"s": secs, "boxes": S.STATS["boxes"],
+                           "boxes_per_s": S.STATS["boxes"] / secs}
+        got, want = res[dev.type], res["cpu"]
+        diff = [n for n in want if (got[n].range.lo, got[n].range.hi) !=
+                (want[n].range.lo, want[n].range.hi)]
+        row["equal"] = not diff
+        out["card_vs_cpu"][name] = row
+        c, h = row[dev.type], row["cpu"]
+        print(f"smt {name} deadline-free, default node budgets ({card}): "
+              f"card {c['s']:.4f} s, {c['boxes']} boxes "
+              f"({c['boxes_per_s']:.1f}/s); CPU {h['s']:.4f} s, "
+              f"{h['boxes']} boxes ({h['boxes_per_s']:.1f}/s); "
+              f"{'every stage equal' if not diff else 'DIFFER'}",
+              flush=True)
+        if diff:
+            bounds = {n: r.range for n, r in want.items()}
+            for n in diff:
+                print(f"  {name} {n}: card {got[n].range} != CPU "
+                      f"{want[n].range}; "
+                      f"{smt_divergence(ALL[name](), n, bounds, dev)}",
+                      flush=True)
+            raise AssertionError(f"smt {name}: the card's ranges differ "
+                                 f"from the CPU's on {diff}")
+    out["cpu_at_the_budget"] = {}
+    for name in SMT_CPU_BUDGET:
+        pipe = ALL[name]()
+        clear_memo()
+        with obs.tracing() as tr:
+            plan = run_plan(pipe, ["interval",
+                                   make_pass("smt", device="cpu")])
+        stats = smt_pass_stats(tr)["smt"]
+        plan.check_nesting(["smt", "interval"])
+        total = sum(plan.alphas("smt").values())
+        starved = [n for note in plan.provenance["smt"].notes
+                   if note.startswith("budget-exhausted")
+                   for n in note.split(": ", 1)[1].split(", ")]
+        card_row = out["pipelines"][name]
+        out["cpu_at_the_budget"][name] = {
+            "s": stats["s"], "boxes": stats["boxes"], "alpha_sum": total,
+            "budget_exhausted": starved}
+        print(f"smt {name} at the default budget on the host's CPU "
+              f"({card}): {stats['s']:.4f} s, {stats['boxes']} boxes, "
+              f"stages that kept their seed {starved or 'none'}, sum of "
+              f"alphas {total} (card {card_row['alpha_sums']['smt']}, "
+              f"{card_row['boxes']['smt']} boxes; interval "
+              f"{card_row['alpha_sums']['interval']}); smt ⊆ interval "
+              f"holds", flush=True)
+    clear_memo()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"smt phase ({card}): {out['phase_s']:.2f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1606,7 +1841,10 @@ def main() -> int:
     # -- 6. the design search on the card -----------------------------------
     design_search = design_search_on_the_card(dev, card, params)
 
-    # -- 7. result lines ---------------------------------------------------
+    # -- 7. the SMT range analysis on the card --------------------------------
+    smt = smt_on_the_card(dev, card, params)
+
+    # -- 8. result lines ---------------------------------------------------
     usm_t = band["usm"]
     print(json.dumps({"kernels": [{
         "name": "fused_band", "route": "cuda",
@@ -1619,7 +1857,8 @@ def main() -> int:
         "pipelines": {n: {k: v for k, v in t.items() if k != "split_ms"}
                       for n, t in band.items()},
         "serving": {"usm": served, "of": flow},
-        "analysis": analysis, "design_search": design_search}]
+        "analysis": analysis, "design_search": design_search,
+        "smt": smt}]
         + library_rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

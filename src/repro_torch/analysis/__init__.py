@@ -2,7 +2,7 @@
 (paper §V), the port of `repro.analysis`.
 
 One pass pipeline, one artifact: analyses (interval / affine / intersect /
-profile) are `AnalysisPass`es composed with `meet` / `refine` /
+smt / profile) are `AnalysisPass`es composed with `meet` / `refine` /
 `widen_to` / `cluster`; `run_plan` executes the declared pass DAG once
 per pipeline with content-hash memoization and emits a single
 `BitwidthPlan` — per-stage range columns with provenance, optional
@@ -18,7 +18,9 @@ per-phase sub-columns, beta assignments, and stable JSON serialization.
     types = plan.types("interval")             # -> dsl.exec.run_fixed
 
 `core.range_analysis.analyze` is a thin shim over a one-pass plan.  The
-SMT pass (`SmtPass`) is not ported yet.
+SMT pass (`SmtPass`, registered as ``"smt"``, ``"smt-scalar"`` and
+``"smt-phase-split"``) runs its batched engine on the card unless it is
+given a `device`; `cluster()` takes it as its default sub-pass.
 """
 from repro_torch.analysis.cluster import (ClusterPass, cluster,
                                           homogeneity_clusters, stage_rates)
@@ -29,8 +31,8 @@ from repro_torch.analysis.driver import (DISK_CACHE_STATS, MEMO_STATS,
                                          clear_memo, one_pass_ranges,
                                          pipeline_content_hash, run_plan)
 from repro_torch.analysis.passes import (AnalysisPass, DomainPass,
-                                         PassResult, ProfilePass, make_pass,
-                                         register_pass)
+                                         PassResult, ProfilePass, SmtPass,
+                                         make_pass, register_pass)
 from repro_torch.analysis.plan import (BitwidthPlan, PlanNestingError,
                                        Provenance)
 
@@ -38,7 +40,7 @@ __all__ = [
     "AnalysisPass", "BitwidthPlan", "ClusterPass", "DISK_CACHE_STATS",
     "DomainPass", "MeetPass", "MEMO_STATS",
     "PassResult", "PlanNestingError", "ProfilePass", "Provenance",
-    "RefinePass", "WidenPass", "clear_memo", "cluster",
+    "RefinePass", "SmtPass", "WidenPass", "clear_memo", "cluster",
     "homogeneity_clusters", "make_pass", "meet",
     "one_pass_ranges", "pipeline_content_hash", "refine", "register_pass",
     "run_plan", "stage_rates", "widen_to",

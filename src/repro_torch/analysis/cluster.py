@@ -11,8 +11,7 @@ per cluster instead of one per stage).
 
   * **rate** — the stage's output-grid rate relative to the pipeline root
     (exact `Fraction`s accumulated through stride/upsample, the same
-    lattice walk the reference's `repro.smt.encoder.sampling_lattice`
-    performs);
+    lattice walk `repro_torch.smt.encoder.sampling_lattice` performs);
   * **signal statistics** — the sub-column's (signed, alpha) of the stage;
   * **datapath shape** — the operator census of the stage expression
     (`core.graph.expr_ops`) plus input arity, i.e. what the stage would
@@ -25,9 +24,8 @@ keeps the same alpha and every member range nests inside its cluster
 range: `plan.check_nesting([sub_column, cluster_column])` holds.
 
 The port's own copy of `repro.analysis.cluster`.  Its default sub-pass
-is ``"smt"``, as in the reference; SMT is not ported yet, so building
-the default raises, and callers name another sub-pass
-(``cluster("interval")``).
+is ``"smt"``, as in the reference (`SmtPass`, whose batched engine runs
+on the card); ``cluster("interval")`` clusters another column.
 """
 from __future__ import annotations
 

@@ -15,14 +15,13 @@ analyses in the DSL compiler").  Every pass
 Passes compose through `PassContext.run`, which consults `run_plan`'s memo
 table — a sub-pass shared by two combinators executes once per pipeline.
 Built-ins wrap the existing analyses: the per-stage domain walk
-(interval / affine / intersect) and the profile executor, which runs on
-the card by default.  The combinators (`meet`, `refine`, `widen_to`)
-live in `analysis.combinators`.
+(interval / affine / intersect), the whole-DAG SMT tightening
+(``"smt"``, ``"smt-scalar"``, ``"smt-phase-split"``) and the profile
+executor; the SMT batched engine and the profile executor run on the
+card by default.  The combinators (`meet`, `refine`, `widen_to`) live
+in `analysis.combinators`.
 
-The port's own copy of `repro.analysis.passes`.  The SMT passes
-(``"smt"``, ``"smt-scalar"``, ``"smt-phase-split"``) are not ported
-yet; until they are, `make_pass("smt")` raises the unknown-pass
-`KeyError`.
+The port's own copy of `repro.analysis.passes`.
 """
 from __future__ import annotations
 
@@ -106,6 +105,61 @@ class DomainPass:
         res = analyze_direct(ctx.pipeline, self.domain,
                              input_ranges=ctx.input_ranges)
         return PassResult(ranges={n: r.range for n, r in res.items()})
+
+
+class SmtPass:
+    """Whole-DAG branch-and-prune tightening (`repro_torch.smt.analyze_smt`).
+
+    `phases=True` additionally collects per-phase certified sub-ranges on
+    phase-split stages (one entry per sampling-lattice residue) — the union
+    bound is unchanged, the sub-ranges become plan phase columns.  The
+    batched engine runs on `device` (``None`` means the card).  The device
+    is not part of the content key: the engine gives the same bits on
+    every device, so the key equals the reference's.
+    """
+
+    name = "smt"
+
+    def __init__(self, config=None, phases: bool = False,
+                 engine: Optional[str] = None, column: str = "smt",
+                 device: DeviceLike = None):
+        self.config = config
+        self.phases = phases
+        self.engine = engine
+        self.column = column
+        self.device = device
+
+    def _config(self):
+        from repro_torch.smt import SMTConfig
+        cfg = self.config if self.config is not None else SMTConfig()
+        if self.engine is not None and cfg.engine != self.engine:
+            cfg = dataclasses.replace(cfg, engine=self.engine)
+        return cfg
+
+    def key(self) -> str:
+        return f"smt:phases={self.phases}:{self._config()!r}"
+
+    def run(self, ctx: PassContext) -> PassResult:
+        from repro_torch.smt import analyze_smt
+        collect: Optional[Dict] = {} if self.phases else None
+        diag: Dict = {}
+        res = analyze_smt(ctx.pipeline, input_ranges=ctx.input_ranges,
+                          config=self._config(), collect_phases=collect,
+                          diagnostics=diag, device=self.device)
+        phases = None
+        if collect:
+            phases = {stage: (lat, dict(rmap))
+                      for stage, (lat, rmap) in collect.items()}
+        notes = []
+        starved = diag.get("budget_exhausted") or []
+        if starved:
+            # lands in plan provenance (and thus serialized plan JSON), so
+            # downstream readers can flag seed-kept alphas instead of
+            # treating them as converged
+            notes.append("budget-exhausted (seed kept): "
+                         + ", ".join(starved))
+        return PassResult(ranges={n: r.range for n, r in res.items()},
+                          phases=phases, notes=notes)
 
 
 def _hash_images(images) -> str:
@@ -208,4 +262,10 @@ def make_pass(spec, **kw):
 register_pass("interval", lambda **kw: DomainPass("interval", **kw))
 register_pass("affine", lambda **kw: DomainPass("affine", **kw))
 register_pass("intersect", lambda **kw: DomainPass("intersect", **kw))
+register_pass("smt", lambda **kw: SmtPass(**kw))
+register_pass("smt-scalar",
+              lambda **kw: SmtPass(engine="scalar", column="smt-scalar", **kw))
+register_pass("smt-phase-split",
+              lambda **kw: SmtPass(**{"phases": True,
+                                      "column": "smt-phase-split", **kw}))
 register_pass("profile", lambda **kw: ProfilePass(**kw))

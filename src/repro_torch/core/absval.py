@@ -7,8 +7,9 @@ analyzer.  Here the same role is played by a *domain adapter*: the
 expression evaluator is written once against this protocol, and any
 analysis (interval, affine, or future domains) plugs in via the registry.
 
-The port's own copy of `repro.core.absval`.  The SMT domains are not
-ported yet, so the lazy map names ``"intersect"`` only.
+The port's own copy of `repro.core.absval`.  The lazy map names
+``"intersect"`` and the SMT domains (``"smt"``, ``"smt-scalar"``,
+`repro_torch.smt`).
 """
 from __future__ import annotations
 
@@ -67,9 +68,12 @@ _REGISTRY: Dict[str, Callable[[], Domain]] = {
 }
 
 # Domains living in modules that register themselves on import; resolved on
-# first use so core stays import-light and cycle-free.
+# first use so core stays import-light and cycle-free (repro_torch.smt
+# imports range_analysis, which imports this module).
 _LAZY_MODULES: Dict[str, str] = {
     "intersect": "repro_torch.core.intersect",
+    "smt": "repro_torch.smt",
+    "smt-scalar": "repro_torch.smt",       # reference-oracle solver engine
 }
 
 

@@ -112,15 +112,21 @@ def test_analyze_with_input_ranges_equals_the_reference():
 
 
 def test_unknown_domain_and_smt_are_refused():
-    with pytest.raises(KeyError, match=r"unknown analysis domain 'smt'; "
-                       r"registered: \['affine', 'intersect', 'interval'\]"):
-        absval.get_domain("smt")
-    with pytest.raises(KeyError, match="unknown analysis pass 'smt'"):
-        PA.make_pass("smt")
-    with pytest.raises(KeyError, match="unknown analysis pass 'smt'"):
-        PA.cluster()                     # the default sub-pass is "smt"
-    with pytest.raises(KeyError, match="unknown analysis domain 'smt'"):
-        analyze(BENCHES[0][2](), "smt")
+    """Unknown names are refused with the registered ones listed; the SMT
+    domain, its passes and the default `cluster()` are known, and without
+    a card they refuse to run (their batched engine defaults to it)."""
+    with pytest.raises(KeyError, match=r"unknown analysis domain 'nope'; "
+                       r"registered: \['affine', 'intersect', 'interval', "
+                       r"'smt', 'smt-scalar'\]"):
+        absval.get_domain("nope")
+    with pytest.raises(KeyError, match="unknown analysis pass 'nope'"):
+        PA.make_pass("nope")
+    assert PA.make_pass("smt").column == "smt"
+    assert PA.cluster().sub.name == "smt"   # the default sub-pass is "smt"
+    if not torch.cuda.is_available():
+        PA.clear_memo()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            analyze(BENCHES[0][2](), "smt")
 
 
 # ---------------------------------------------------------------------------
@@ -430,7 +436,7 @@ def test_traced_run_plan_records_the_reference_spans(fresh):
 def test_public_names_are_the_reference_s_but_smt():
     import repro.core as RC
     import repro_torch.core as PC
-    assert set(PA.__all__) == set(RA.__all__) - {"SmtPass"}
+    assert set(PA.__all__) == set(RA.__all__)
     assert set(PC.__all__) == set(RC.__all__)
     for name in PA.__all__:
         assert hasattr(PA, name), name

@@ -682,3 +682,153 @@ def test_one_band_launch_per_island_per_fresh_candidate(cuda, name, seed,
         K.LAUNCHES["fused_band"] = 0
         ev.evaluate(a, b)
         assert K.LAUNCHES["fused_band"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the SMT range analysis: its batched engine on the card
+# ---------------------------------------------------------------------------
+
+SMT_SMALL = dict(max_nodes=64, work_budget=4096)
+
+# the JAX package's differential stages (tests/test_smt.py `_DIFF_STAGES`)
+SMT_STAGES = [("usm", "sharpen"), ("usm", "masked"), ("dus", "Uy"),
+              ("dus", "Dy"), ("dus_ext", "band"), ("hcd", "Ixy"),
+              ("hcd", "trace"), ("of1", "Denom"), ("of_pyr1", "cVx0"),
+              ("of_pyr1", "Vx1")]
+
+
+def _smt_pipe(name):
+    from repro_torch.pipelines import optical_flow
+    if name == "of1":
+        return optical_flow.build(n_iters=1)
+    if name == "of_pyr1":
+        return optical_flow.build_pyramid(n_iters=1)
+    return ALL[name]()
+
+
+def _smt_entries(pipe, stage):
+    """`stage` encoded as `analyze_smt` encodes it, and its seed."""
+    from repro_torch.core.range_analysis import analyze
+    from repro_torch.smt import encoder as E
+    bounds = {n: r.range for n, r in analyze(pipe).items()}
+    entries = (E.encode_stage_phases(pipe, stage, bounds)
+               if E.closure_is_sampled(pipe, stage) else None)
+    return entries or [E.encode_stage(pipe, stage, bounds)], bounds[stage]
+
+
+def _ranges(res):
+    return {n: (r.range.lo, r.range.hi) for n, r in res.items()}
+
+
+def test_sqrt_on_the_card_is_correctly_rounded(cuda):
+    """The engine's square roots on the card are IEEE (numpy's); on the
+    CPU it takes numpy's, since torch's CPU `sqrt` is not."""
+    x = np.abs(np.random.default_rng(0).standard_normal(1 << 20)
+               * 10.0 ** np.random.default_rng(1).integers(-300, 300,
+                                                            1 << 20))
+    got = torch.sqrt(torch.from_numpy(x).to(cuda)).cpu().numpy()
+    assert np.array_equal(got, np.sqrt(x))
+
+
+@pytest.mark.parametrize("name", ["usm", "dus", "dus_ext"])
+def test_smt_on_the_card_equals_the_cpu(cuda, name):
+    """`analyze_smt` deadline-free at the default node budgets: every
+    stage's range is the same on the card and on the CPU."""
+    from repro_torch.smt import SMTConfig, analyze_smt
+    cfg = SMTConfig(time_budget_s=float("inf"))
+    got = analyze_smt(ALL[name](), config=cfg, device=cuda)
+    want = analyze_smt(ALL[name](), config=cfg, device="cpu")
+    assert _ranges(got) == _ranges(want)
+
+
+@pytest.mark.parametrize("name,stage", SMT_STAGES,
+                         ids=[f"{n}-{s}" for n, s in SMT_STAGES])
+def test_smt_decide_on_the_card_equals_the_cpu(cuda, name, stage):
+    from repro_torch.smt import solver as S
+    entries, seed = _smt_entries(_smt_pipe(name), stage)
+    for frac, sense in ((1.5, "ge"), (0.5, "ge"), (1.5, "le"),
+                        (0.5, "le")):
+        t = (seed.hi if sense == "ge" else seed.lo) * frac
+        got = S.decide_multi(entries, sense, t, S.BPBudget(48, 6),
+                             device=cuda)
+        want = S.decide_multi(entries, sense, t, S.BPBudget(48, 6),
+                              device="cpu")
+        assert (got.status, got.witness, got.nodes) == \
+            (want.status, want.witness, want.nodes), (sense, t)
+
+
+def test_smt_tightening_of_the_pyramid_on_the_card_equals_the_cpu(cuda):
+    """of_pyramid's cVx0 through the batched engine at 64 nodes (the
+    case the CPU tests leave to the card: the JAX package takes 6-9 s
+    on it)."""
+    from repro_torch.smt import SMTConfig
+    from repro_torch.smt.optimize import tighten_stage_phases
+    entries, seed = _smt_entries(ALL["of_pyramid"](), "cVx0")
+    cfg = SMTConfig(time_budget_s=float("inf"), **SMT_SMALL)
+    got = tighten_stage_phases(entries, seed, cfg, float("inf"), cuda)
+    want = tighten_stage_phases(entries, seed, cfg, float("inf"), "cpu")
+    assert (got.lo, got.hi) == (want.lo, want.hi)
+
+
+@pytest.mark.parametrize("name,stage", [("hcd", "trace"),
+                                        ("of_pyr1", "cVx0")])
+def test_smt_sweeps_on_the_card_equal_the_cpu_bit_for_bit(cuda, name,
+                                                          stage):
+    """hc4, the affine sweep, the gradients and the split choice on a
+    seeded frontier of random sub-boxes, every bit (the sign of a zero
+    included)."""
+    from repro_torch.smt import encoder as E
+    from repro_torch.smt import solver as S
+    (entries, _) = _smt_entries(_smt_pipe(name), stage)
+    csp, root = entries[0]
+    prog = E.compile_csp(csp)
+    rng = np.random.default_rng(5)
+    N = 200
+    lo0 = np.where(np.isfinite(prog.init_lo), prog.init_lo, -1e3)
+    hi0 = np.where(np.isfinite(prog.init_hi), prog.init_hi, 1e3)
+    u = np.sort(rng.random((2, N, prog.nvars)), axis=0)
+    lo = np.where(np.isfinite(prog.init_lo), lo0 + (hi0 - lo0) * u[0],
+                  prog.init_lo)
+    hi = np.where(np.isfinite(prog.init_hi), lo0 + (hi0 - lo0) * u[1],
+                  prog.init_hi)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        tlo = torch.from_numpy(lo).to(dev)
+        thi = torch.from_numpy(hi).to(dev)
+        alive = torch.ones(N, dtype=torch.bool, device=dev)
+        alive = S.hc4_batch(prog, tlo, thi, alive, 6)
+        alive = S.affine_batch(prog, tlo, thi, alive)
+        glo, ghi = S.gradients_batch(prog, tlo, thi, root)
+        dp = E.device_program(prog, dev)
+        split = S._split_batch(dp, tlo, thi, glo, ghi, alive)
+        out[dev.type] = [t.cpu().numpy() for t in
+                         (alive, tlo, thi, glo, ghi) + split]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        if got.dtype == np.float64:
+            assert np.array_equal(np.isnan(got), np.isnan(want))
+            ok = ~np.isnan(want)
+            assert np.array_equal(got[ok].view(np.int64),
+                                  want[ok].view(np.int64))
+        else:
+            assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["usm", "dus", "dus_ext"])
+def test_smt_designs_kernel_equals_plain_version(cuda, name):
+    """The SMT column's design (and the phase-split one, whose residue
+    types run through `BitwidthPlan.phase_types`) through the band
+    kernel equals its plain version."""
+    from repro_torch.smt import SMTConfig
+    pipe, params = ALL[name](), PARAMS.get(name, {})
+    cfg = SMTConfig(time_budget_s=float("inf"), **SMT_SMALL)
+    A.clear_memo()
+    plan = A.run_plan(pipe, [A.make_pass("smt", config=cfg, device=cuda),
+                             A.make_pass("smt-phase-split", config=cfg,
+                                         device=cuda)],
+                      betas={n: 4 for n in pipe.stages})
+    A.clear_memo()
+    for col in ("smt", "smt-phase-split"):
+        design = design_from_plan(plan, col)
+        if col == "smt-phase-split" and name != "usm":
+            assert design.phases, name
+        _check(pipe, _inputs(name, (2, 96, 128), 80), design, params, cuda)

@@ -40,7 +40,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.kernels.qmatmul.ops, repro_torch.kernels.qdq.ops, "
             "repro_torch.dse, repro_torch.core.cost_model, "
             "repro_torch.core.beta_search, repro_torch.pipelines.data, "
-            "repro_torch.pipelines.metrics; "
+            "repro_torch.pipelines.metrics, repro_torch.smt, "
+            "repro_torch.smt.solver; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -52,6 +53,12 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
 def test_the_obs_subpackage_is_checked():
     assert {p.name for p in PORT_FILES if p.parent.name == "obs"} == \
         {"__init__.py", "tracer.py", "warnonce.py"}
+
+
+def test_the_smt_subpackage_is_checked():
+    assert {p.name for p in PORT_FILES if p.parent.name == "smt"} == \
+        {"__init__.py", "domain.py", "encoder.py", "optimize.py",
+         "solver.py"}
 
 
 def test_the_dse_subpackage_is_checked():

@@ -50,8 +50,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.smt.encoder import (CONST, CSP, Def, DeviceProgram, Program,
                                      VAR, compile_csp, device_program,
                                      OP_ABS, OP_ADD, OP_DIV, OP_MAX, OP_MIN,
-                                     OP_MUL, OP_POW, OP_SELECT, OP_SQRT,
-                                     OP_SUB)
+                                     OP_MUL, OP_POW, OP_SQRT, OP_SUB)
 
 UNSAT, SAT, UNKNOWN = "unsat", "sat", "unknown"
 

@@ -103,8 +103,31 @@ Phases (any failure raises, and the exit code is not 0):
    for hcd, of and of_pyramid (whose card runs reach the deadline) and
    print its seconds, boxes, seed-kept stages and sum of alphas beside
    the card's; print the phase's seconds;
-8. print a `{"kernels": [...]}` line, the card's name and power limit,
-   and, last, `{"ok": true, "device": {...}}`.
+8. workflows on the card: count how often the card's `pow` (for x ** n
+   outside the band kernel) differs from numpy's, and check its `sqrt`
+   and npops' min/max of +-0 against numpy's; (a) run the paper's
+   Tables II-X, XII and Figures 5-6 through
+   `repro_torch.benchmarks.paper_tables` at the reference's sizes on the
+   card and on the host's CPU (the analysis memo cleared between), every
+   row and derived line equal, printing each table's seconds on each;
+   (b) the Figure 4 workflow at 1080x1920 on usm, hcd and dus (2 train
+   and 2 test images; optical flow's beta search, over 20 s of host
+   work, is left out to hold the script's time): static alphas, the
+   profile on the card, the beta search through the band kernel (its
+   launches counted from 0 after a warm-up evaluation), `design_report`,
+   printing the sum of betas, the quality against the target,
+   evaluations, seconds and launches, and the chosen design's outputs
+   on one test image equal to the `"interp"` oracle on the card; (c)
+   one USM batch of 4 at 1080x1920 served under
+   `obs.enable(runtime_ranges=True)`, and the same batch through the
+   band kernel with every stage asked for: outputs equal with telemetry
+   off, `rt.range` records equal to the `"interp"` walk's on the host
+   CPU per image (ranges joined, rail counts summed), headroom a stage,
+   JSONL and Chrome trace in `chiprun_out/`, `obs.report`'s stage table;
+   the phase's seconds;
+9. print the seconds phases 1-8 took, a `{"kernels": [...]}` line, the
+   card's name and power limit, and, last, `{"ok": true, "device":
+   {...}}`.
 
 Without a CUDA card it exits non-zero before printing any result.
 """
@@ -1752,7 +1775,276 @@ def smt_on_the_card(dev, card, params) -> dict:
     return out
 
 
+# phase 8 runs the paper's tables on the card and on the host's CPU, the
+# Figure 4 workflow at full width and the runtime telemetry
+TABLES_ON_BOTH = ("table2_hcd_ranges", "table3_hcd_power",
+                  "table4_hcd_bitwidths", "table5_usm_bitwidths",
+                  "table6_usm_power", "table7_dus_power",
+                  "table8_dus_bitwidths", "table9_of_bitwidths",
+                  "table10_of_power", "table12_design_frontier",
+                  "fig5_cdf", "fig6_beta_sweep")
+# optical flow's beta search at 1080x1920 takes over 20 s of host work
+# (a fresh 30-stage encode a candidate), so (b) leaves it out
+WORKFLOWS = ("usm", "hcd", "dus")
+
+
+def numpy_rules_on_the_card(dev, card) -> dict:
+    """How the card's elementwise ops meet numpy's rules outside the band
+    kernel (`core.npops` keeps the card's own `sqrt` and `pow`): values
+    of `npops.npow` (torch's `pow` on the card) that differ from numpy's
+    ``x ** n``, and of ``|x| ** (1/3)``, of 200,000 uniform f64 in
+    [-1e3, 1e3] (seed 0); the card's `sqrt` against `np.sqrt`; npops'
+    min/max of +0 and -0 against numpy's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import npops
+    x = np.random.default_rng(0).uniform(-1e3, 1e3, 200000)
+    t = torch.from_numpy(x).to(dev)
+    out = {}
+    for n in (3, 4, 5, -1, -3):
+        got = npops.npow(t, n).cpu().numpy()
+        want = x ** n          # numpy's `**`, as the reference evaluates
+        out[f"pow{n}"] = int(np.count_nonzero(got != want))
+    ax = np.abs(x)
+    got = npops.power(torch.from_numpy(ax).to(dev), 1.0 / 3).cpu().numpy()
+    out["root3"] = int(np.count_nonzero(got != ax ** (1.0 / 3)))
+    got = npops.sqrt(torch.from_numpy(ax).to(dev)).cpu().numpy()
+    out["sqrt"] = int(np.count_nonzero(got != np.sqrt(ax)))
+    z = np.array([0.0, -0.0, -0.0, 0.0] * 1001)
+    a, b = torch.from_numpy(z).to(dev), torch.from_numpy(z[::-1].copy()).to(
+        dev)
+    for name, fn, ref in (("minimum", npops.minimum, np.minimum),
+                          ("maximum", npops.maximum, np.maximum)):
+        got = fn(a, b).cpu().numpy()
+        out[name] = int(np.count_nonzero(np.signbit(got) !=
+                                         np.signbit(ref(z, z[::-1]))))
+    print(f"numpy rules on the card ({card}): values differing from numpy "
+          f"of 200000 (seed 0): " + ", ".join(f"{k} {v}"
+                                               for k, v in out.items()),
+          flush=True)
+    assert out["sqrt"] == 0 and out["minimum"] == out["maximum"] == 0
+    return out
+
+
+def tables_on_both(dev, card) -> dict:
+    """Phase 8 (a): the paper's tables at the reference's sizes through
+    `repro_torch.benchmarks.paper_tables`, on the card and on the host's
+    CPU in this run (the analysis memo cleared between, so each device
+    computes its own plans); every row and derived line equal."""
+    from repro_torch.analysis import clear_memo
+    from repro_torch.benchmarks import paper_tables as PT
+    out = {}
+    for name in TABLES_ON_BOTH:
+        recs = {}
+        for d in (dev, "cpu"):
+            clear_memo()
+            recs[str(d)] = PT.run_table(name, d)
+        card_rec, cpu_rec = recs[str(dev)], recs["cpu"]
+        if (card_rec["rows"], card_rec["derived"]) != \
+                (cpu_rec["rows"], cpu_rec["derived"]):
+            raise AssertionError(f"{name}: card and CPU differ:\n"
+                                 f"{card_rec}\n{cpu_rec}")
+        out[name] = {"card_s": card_rec["seconds"],
+                     "cpu_s": cpu_rec["seconds"],
+                     "derived": card_rec["derived"]}
+        print(f"table {name} ({card}): {card_rec['seconds']:.2f} s on the "
+              f"card, {cpu_rec['seconds']:.2f} s on the host CPU, rows "
+              f"equal: {card_rec['derived']}", flush=True)
+    clear_memo()
+    return out
+
+
+def workflow_at_full_width(name, dev, card) -> dict:
+    """Phase 8 (b), one benchmark: `make_*` at 1080x1920 with 2 train
+    and 2 test images, static alphas, the profile on the
+    card, the beta search through the band kernel (launches counted from
+    0 after a warm-up evaluation), `design_report`, and the chosen
+    design's outputs on one test image equal to the `"interp"` oracle."""
+    import warnings
+
+    import torch
+
+    from repro_torch.dsl.exec import run_fixed
+    from repro_torch.kernels.stencil import kernel as K
+    from repro_torch.pipelines import workflows as W
+    t0 = time.perf_counter()
+    b = W.ALL_BENCHMARKS[name](n_train=2, n_test=2, shape=FRAME, device=dev)
+    t_data = time.perf_counter() - t0
+    pipe = b.pipeline
+    t0 = time.perf_counter()
+    alphas, signed = W.static_alphas(pipe)
+    prof = b.profile()
+    t_analysis = time.perf_counter() - t0
+    calls = [0]
+    metric = b.quality_of
+
+    def counted(r, f, p):
+        calls[0] += 1
+        return metric(r, f, p)
+
+    b.quality_of = counted
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        b.mean_quality(W.types_from_alpha(pipe, alphas, signed,
+                                          {n: 4 for n in pipe.stages}),
+                       images=b.train_images[:1])       # warm-up
+        torch.cuda.synchronize()
+        calls[0] = 0
+        K.LAUNCHES["fused_band"] = 0
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            res = b.run_beta_search(prof.alpha_max, signed, beta_hi=10)
+        torch.cuda.synchronize()
+        t_search = time.perf_counter() - t0
+        launches = K.LAUNCHES["fused_band"]
+        scored = calls[0]
+        types = W.types_from_alpha(pipe, prof.alpha_max, signed, res.betas)
+    b.quality_of = metric
+    assert launches >= scored > 0, (launches, scored)
+    q_test = b.mean_quality(types)
+    rep = W.design_report(pipe, types)
+    img = b.test_images[0]
+    got = run_fixed(pipe, img, types, b.params, backend="cuda", device=dev)
+    want = run_fixed(pipe, img, types, b.params, backend="interp",
+                     device=dev)
+    for k, v in got.items():
+        assert v.shape == FRAME and torch.isfinite(v).all(), k
+        if not torch.equal(v, want[k]):
+            raise AssertionError(f"workflow {name}: chosen design's {k} "
+                                 f"!= the interp oracle")
+    row = {"sum_beta": sum(res.betas.values()),
+           "sum_alpha_sa": sum(alphas.values()),
+           "sum_alpha_max": sum(prof.alpha_max.values()),
+           "quality_train": res.quality, "quality_test": q_test,
+           "target": b.quality_target, "evaluations": res.profile_passes,
+           "scored_images": scored, "launches": launches,
+           "data_s": t_data, "analysis_s": t_analysis, "search_s": t_search,
+           "power_x": rep["improvement"]["power"],
+           "lut_x": rep["improvement"]["area_lut"]}
+    print(f"workflow {name} {FRAME[0]}x{FRAME[1]} ({card}): sum beta "
+          f"{row['sum_beta']}, quality {res.quality:.4f} on train / "
+          f"{q_test:.4f} on test against target {b.quality_target}, "
+          f"{res.profile_passes} evaluations ({scored} image scorings) in "
+          f"{t_search:.2f} s, {launches} band-kernel launches from 0, "
+          f"static + profile analysis {t_analysis:.2f} s, data "
+          f"{t_data:.2f} s; modeled power x{row['power_x']:.1f}, LUT "
+          f"x{row['lut_x']:.1f} vs float; chosen design == interp oracle",
+          flush=True)
+    return row
+
+
+def telemetry_on_the_card(dev, card) -> dict:
+    """Phase 8 (c): one USM batch of 4 at 1080x1920 served under
+    `obs.enable(runtime_ranges=True)` (the server's band-kernel
+    executor records the output), and the same batch through the band
+    kernel with every stage asked for; outputs equal to the same batch
+    with telemetry off, and the `rt.range` records equal to the
+    `"interp"` walk's per image on the host CPU (ranges joined, rail
+    counts summed).  Headroom a stage; JSONL and Chrome trace under
+    `chiprun_out/`; `obs.report`'s stage table."""
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core.fixedpoint import alpha_for_range
+    from repro_torch.dsl.exec import run_fixed
+    from repro_torch.obs import report
+    from repro_torch.pipelines import usm
+    from repro_torch.pipelines.types import load_types
+    from repro_torch.serve import PipelineServer
+    pipe, types, p = usm.build(), load_types("usm"), dict(usm.DEFAULT_PARAMS)
+    imgs = [frames(FRAME, 500 + i) for i in range(4)]
+    batch = np.stack(imgs)
+    stages = list(pipe.topo_order())
+    # a long batch timeout: the four requests make one batch, no pad
+    with PipelineServer(pipe, types, p, backend="cuda", batch_size=4,
+                        batch_timeout_s=30.0, device=dev) as srv:
+        srv.warmup([FRAME])
+        off = [f.result(timeout=600) for f in [srv.submit(x) for x in imgs]]
+        tr = obs.enable(runtime_ranges=True)
+        try:
+            t0 = time.perf_counter()
+            on = [f.result(timeout=600)
+                  for f in [srv.submit(x) for x in imgs]]
+            served_s = time.perf_counter() - t0
+            every = run_fixed(pipe, batch, types, p, backend="cuda",
+                              device=dev, outputs=stages)
+            torch.cuda.synchronize()
+        finally:
+            obs.disable()
+    quiet = run_fixed(pipe, batch, types, p, backend="cuda", device=dev,
+                      outputs=stages)
+    for a, b_ in zip(on, off):
+        for k in b_:
+            assert torch.equal(a[k], b_[k]), f"served {k}: telemetry changed it"
+    for k in quiet:
+        assert torch.equal(every[k], quiet[k]), f"{k}: telemetry changed it"
+    recs = [dict(e["attrs"]) for e in tr.events("rt.range")]
+    served, direct = recs[:len(pipe.outputs)], recs[len(pipe.outputs):]
+    assert srv.stats["batches"] == 2 and srv.stats["padded"] == 0, srv.stats
+    with obs.tracing(runtime_ranges=True) as host:
+        for x in imgs:
+            run_fixed(pipe, x, types, p, backend="interp", device="cpu")
+    per = {}
+    for r in host.events("rt.range"):
+        per.setdefault(r["attrs"]["stage"], []).append(r["attrs"])
+
+    def joined(stage, backend):
+        rs = per[stage]
+        out = dict(rs[0], backend=backend, n=sum(r["n"] for r in rs),
+                   min=min(r["min"] for r in rs),
+                   max=max(r["max"] for r in rs))
+        out["alpha_obs"] = int(alpha_for_range(out["min"], out["max"]))
+        out["headroom"] = out["alpha_plan"] - out["alpha_obs"]
+        for k in ("sat_lo", "sat_hi", "sat"):
+            out[k] = sum(r[k] for r in rs)
+        return out
+
+    assert served == [joined(s, "cuda") for s in pipe.outputs], served
+    assert direct == [joined(s, "cuda") for s in stages], direct
+    outdir = ROOT / "chiprun_out"
+    outdir.mkdir(exist_ok=True)
+    obs.write_jsonl(tr, outdir / "telemetry_usm.jsonl")
+    obs.write_chrome_trace(tr, outdir / "telemetry_usm.trace.json")
+    table = report.render({"passes": [], "smt_stages": [],
+                           "runtime": report.summarize(
+                               obs.to_jsonl_records(tr))["runtime"]})
+    head = {r["stage"]: r["headroom"] for r in direct}
+    print(f"telemetry usm 4x{FRAME[0]}x{FRAME[1]} ({card}): served batch "
+          f"{served_s * 1e3:.2f} ms with telemetry on; outputs equal with "
+          f"it off; rt.range records equal the interp walk's on the host "
+          f"CPU per image, joined; headroom a stage {head}; saturated "
+          f"pixels {sum(r['sat'] for r in direct)}", flush=True)
+    print(table, flush=True)
+    return {"headroom": head, "served_ms": served_s * 1e3,
+            "records": len(recs)}
+
+
+def workflows_on_the_card(dev, card) -> dict:
+    """Phase 8: numpy's rules on the card, (a) the tables on the card
+    and the host CPU, (b) the Figure 4 workflow at 1080x1920 on
+    `WORKFLOWS`, (c) runtime telemetry; the phase's seconds."""
+    t_phase = time.perf_counter()
+    out = {"numpy_rules": numpy_rules_on_the_card(dev, card)}
+    t0 = time.perf_counter()
+    out["tables"] = tables_on_both(dev, card)
+    out["tables_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["workflows"] = {n: workflow_at_full_width(n, dev, card)
+                        for n in WORKFLOWS}
+    out["workflows_s"] = time.perf_counter() - t0
+    out["telemetry"] = telemetry_on_the_card(dev, card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"workflows phase ({card}): {out['phase_s']:.2f} s (tables "
+          f"{out['tables_s']:.2f} s, workflows {out['workflows_s']:.2f} s)",
+          flush=True)
+    return out
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1844,7 +2136,12 @@ def main() -> int:
     # -- 7. the SMT range analysis on the card --------------------------------
     smt = smt_on_the_card(dev, card, params)
 
-    # -- 8. result lines ---------------------------------------------------
+    # -- 8. workflows on the card -------------------------------------------
+    workflows = workflows_on_the_card(dev, card)
+
+    # -- 9. result lines ---------------------------------------------------
+    print(f"chip_smoke: phases 1-8 in {time.perf_counter() - t_script:.2f} s "
+          f"({card})", flush=True)
     usm_t = band["usm"]
     print(json.dumps({"kernels": [{
         "name": "fused_band", "route": "cuda",
@@ -1858,7 +2155,7 @@ def main() -> int:
                       for n, t in band.items()},
         "serving": {"usm": served, "of": flow},
         "analysis": analysis, "design_search": design_search,
-        "smt": smt}]
+        "smt": smt, "workflows": workflows}]
         + library_rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

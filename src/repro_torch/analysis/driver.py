@@ -77,7 +77,8 @@ class _Context:
 
 
 def _disk_cache_key(pipe_hash: str, resolved: Sequence[AnalysisPass],
-                    input_ranges, betas) -> Optional[str]:
+                    input_ranges, betas,
+                    default_column: Optional[str] = None) -> Optional[str]:
     """Stable cross-process cache key, or None when a pass key is only
     process-local (custom profile runners get a per-process `runner#N`
     identity — caching those on disk would collide across processes)."""
@@ -91,12 +92,14 @@ def _disk_cache_key(pipe_hash: str, resolved: Sequence[AnalysisPass],
         h.update(b"|")
         h.update(k.encode())
     h.update(repr(sorted((betas or {}).items())).encode())
+    h.update((default_column or "").encode())
     return h.hexdigest()[:20]
 
 
 def run_plan(pipeline: Pipeline, passes: Sequence,
              input_ranges: Optional[Dict[str, Interval]] = None,
              betas: Optional[Dict[str, int]] = None,
+             default_column: Optional[str] = None,
              cache_dir: Optional[str] = None) -> BitwidthPlan:
     """Execute the declared pass DAG and collect columns into one plan.
 
@@ -108,7 +111,7 @@ def run_plan(pipeline: Pipeline, passes: Sequence,
     `cache_dir` opts into the disk-backed plan cache: plans serialize
     stably (`BitwidthPlan.to_json`), so CI and benchmark runs reuse
     cross-run analysis results keyed on `pipeline_content_hash` + every
-    pass's content key (+ input ranges and betas).  Passes
+    pass's content key (+ input ranges, betas, default column).  Passes
     with process-local identities (custom profile runners) skip the disk
     cache with a `RuntimeWarning`; the in-process memo still applies.
     """
@@ -118,7 +121,8 @@ def run_plan(pipeline: Pipeline, passes: Sequence,
                   hash=pipe_hash, n_passes=len(resolved)) as sp:
         cache_path = None
         if cache_dir is not None:
-            key = _disk_cache_key(pipe_hash, resolved, input_ranges, betas)
+            key = _disk_cache_key(pipe_hash, resolved, input_ranges, betas,
+                                  default_column)
             if key is None:
                 DISK_CACHE_STATS.add("skips")
                 sp.set(disk_cache="skip")
@@ -152,6 +156,8 @@ def run_plan(pipeline: Pipeline, passes: Sequence,
                             Provenance(pass_name=p.name, spec=p.key(),
                                        notes=list(res.notes)),
                             phases=res.phase_stage_ranges())
+        if default_column:
+            plan.default_column = default_column
         if cache_path is not None:
             os.makedirs(cache_dir, exist_ok=True)
             tmp = cache_path + ".tmp"

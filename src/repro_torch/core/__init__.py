@@ -10,6 +10,7 @@
 - `profile`: profile-driven alpha^max / alpha^avg (paper §V-A), on the
   device the runner's tensors are on
 - `policy`: container legalization
+- `npops`: numpy's elementwise rules (max/min, sqrt, powers) on tensors
 """
 from repro_torch.core.affine import AffineForm
 from repro_torch.core.fixedpoint import FixedPointType, alpha_for_range

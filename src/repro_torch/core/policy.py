@@ -13,7 +13,7 @@ into the container last; loads widen first.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -72,3 +72,8 @@ def container_bytes(t: Optional[FixedPointType]) -> float:
     """Bytes a stored element of type `t` takes (the cost model's
     memory-traffic proxy)."""
     return legalize(t).bytes
+
+
+def legalize_design(types: Dict[str, Optional[FixedPointType]]
+                    ) -> Dict[str, LegalizedType]:
+    return {k: legalize(v) for k, v in types.items()}

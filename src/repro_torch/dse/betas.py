@@ -62,12 +62,15 @@ def quality_fn_from_plan(pipeline: Pipeline, plan_or_alphas, *,
                          backend: str = "cuda",
                          refs=None,
                          device: DeviceLike = None,
+                         outputs: Optional[Sequence[str]] = None,
                          ) -> Callable[[Dict[str, int]], float]:
     """Measured `quality_fn(beta_map)` for `core.beta_search`.
 
     `metric(ref_env, fixed_env, params) -> float` (higher = better)
     defaults to worst-output PSNR; quality is the mean over `images`.
     Alphas below 1 take the standard clamp-to-1 (plan discipline).
+    `outputs` names the stages a ``"cuda"`` / ``"torch"`` execution
+    returns to `metric` (default: the pipeline's outputs).
     """
     dev = resolve_device(device)
     alphas, signed, _col = plan_columns(plan_or_alphas, signed, column)
@@ -82,7 +85,8 @@ def quality_fn_from_plan(pipeline: Pipeline, plan_or_alphas, *,
                                    signed=signed[n])
                  for n in pipeline.stages}
         qs = [metric(r, run_fixed(pipeline, im, types, params,
-                                  backend=backend, device=dev), params)
+                                  backend=backend, device=dev,
+                                  outputs=outputs), params)
               for im, r in zip(images, refs)]
         return float(np.mean(qs))
 
@@ -95,16 +99,19 @@ def search_betas(pipeline: Pipeline, plan_or_alphas, *, images: Sequence,
                  metric: Optional[Callable] = None, backend: str = "cuda",
                  refs=None, beta_hi: int = 12, frozen: Sequence[str] = (),
                  fixed_betas: Optional[Dict[str, int]] = None,
-                 device: DeviceLike = None) -> BetaSearchResult:
+                 device: DeviceLike = None,
+                 outputs: Optional[Sequence[str]] = None
+                 ) -> BetaSearchResult:
     """Uniform sweep + reverse-topo refine against a measured quality.
 
     The plan-aware face of `core.beta_search.search`: alphas/signed come
     from the plan's `column` (default column when None), quality from
-    executing each trial design on `images` via `backend` on `device`.
+    executing each trial design on `images` via `backend` on `device`
+    (returning `outputs` to `metric`; see `quality_fn_from_plan`).
     """
     qf = quality_fn_from_plan(pipeline, plan_or_alphas, images=images,
                               signed=signed, column=column, params=params,
                               metric=metric, backend=backend, refs=refs,
-                              device=device)
+                              device=device, outputs=outputs)
     return beta_search.search(pipeline, qf, target, beta_hi=beta_hi,
                               frozen=frozen, fixed_betas=fixed_betas)

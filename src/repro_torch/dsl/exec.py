@@ -70,17 +70,18 @@ EXEC_CACHE_STATS = obs.CounterGroup("lowering.executor_cache",
 
 def executor_cache_key(pipeline: Pipeline, types, params: Dict[str, float],
                        backend: str, column: Optional[str], datapath: str,
-                       device: torch.device) -> tuple:
+                       device: torch.device,
+                       outputs: Optional[Sequence[str]] = None) -> tuple:
     """Content key of one compiled executor: (pipeline content hash,
     plan or type-map serialization, params, backend, column, datapath,
-    device)."""
+    device, outputs)."""
     if hasattr(types, "to_json"):      # DesignTypes / BitwidthPlan
         types_key = types.to_json()
     else:
         types_key = repr(sorted((k, str(v)) for k, v in types.items()))
     return (pipeline_content_hash(pipeline), types_key,
             repr(sorted(params.items())), backend, column, datapath,
-            str(device))
+            str(device), tuple(outputs) if outputs else None)
 
 
 def set_executor_cache_cap(cap: int) -> int:
@@ -105,16 +106,18 @@ def clear_executor_cache() -> None:
 def lowered_executor(pipeline: Pipeline, types, params: Dict[str, float],
                      backend: str = "cuda", device: DeviceLike = None,
                      column: Optional[str] = None,
-                     datapath: str = "exact") -> Callable:
+                     datapath: str = "exact",
+                     outputs: Optional[Sequence[str]] = None) -> Callable:
     """The memoized compiled executor for this content key."""
-    from repro_torch.lowering.cuda_backend import compile_cuda
     from repro_torch.lowering.ir import lower
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{BACKENDS}")
     dev = resolve_device(device)
+    banded = backend in ("cuda", "torch")
+    outputs = list(outputs) if outputs and banded else None
     key = executor_cache_key(pipeline, types, params, backend, column,
-                             datapath, dev)
+                             datapath, dev, outputs)
     with _MEMO_LOCK:
         fn = _MEMO.get(key)
         if fn is not None:
@@ -127,12 +130,9 @@ def lowered_executor(pipeline: Pipeline, types, params: Dict[str, float],
                       datapath=datapath):
             lp = lower(pipeline, types, params=params, column=column,
                        datapath=datapath)
-        if backend in ("cuda", "torch"):
-            fn = compile_cuda(lp, device=dev, plain=backend == "torch")
-        else:
-            compile_ = (B.compile_lowered if backend == "lowered"
-                        else B.compile_interp)
-            fn = compile_(lp, outputs=list(pipeline.stages), device=dev)
+        fn = B.compile_backend(
+            lp, backend, device=dev,
+            outputs=outputs if banded else list(pipeline.stages))
         while len(_MEMO) >= _MEMO_CAP:
             _MEMO.popitem(last=False)
             EXEC_CACHE_STATS.add("evictions")
@@ -144,7 +144,9 @@ def run_fixed(pipeline: Pipeline, image, types,
               params: Dict[str, float] | None = None,
               backend: str = "cuda", column: Optional[str] = None,
               datapath: str = "exact",
-              device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+              device: DeviceLike = None,
+              outputs: Optional[Sequence[str]] = None
+              ) -> Dict[str, torch.Tensor]:
     """Bit-accurate fixed-point design (saturating, round-half-even).
 
     `types` is a per-stage type map, a design with per-residue phase
@@ -156,10 +158,12 @@ def run_fixed(pipeline: Pipeline, image, types,
     input stage; (H, W) or (B, H, W); f64 pixel values, or tensors
     already in the input stage's container (pre-quantized, used as they
     are).  Returns ``{stage: f64 tensor}`` on `device` (default
-    ``"cuda"``; it raises without a card): the pipeline's outputs for
-    ``"cuda"``/``"torch"``, every stage for ``"lowered"``/``"interp"``."""
+    ``"cuda"``; it raises without a card): for ``"cuda"``/``"torch"`` the
+    pipeline's outputs, or the stages named in `outputs` (each stored
+    back from its rate island); every stage for ``"lowered"`` and
+    ``"interp"``."""
     run = lowered_executor(pipeline, types, dict(params or {}), backend,
-                           device, column, datapath)
+                           device, column, datapath, outputs)
     return run(image)
 
 
@@ -205,36 +209,45 @@ def _run_concrete(pipeline: Pipeline, image, params: Dict[str, float],
         inputs = {input_names[0]: image}
     for name in pipeline.topo_order():
         st = pipeline.stages[name]
-        if st.is_input:
-            x = inputs[name]
-            x = x if isinstance(x, torch.Tensor) else torch.from_numpy(
-                np.asarray(x))
-            out = x.to(dev, torch.float64)
-        else:
-            H, W = env[st.inputs[0]].shape
-            H, W = H * st.upsample[0], W * st.upsample[1]
-            hy, hx = st.halo_yx()
-            padded = {i: B.upsample_pad(env[i], st.upsample, (hy, hx))
-                      for i in st.inputs}
-            out = B.eval_tensor_expr(
-                st.expr, lambda s, dy, dx: padded[s][
-                    hy + dy:hy + dy + H, hx + dx:hx + dx + W],
-                params, torch.float64, (H, W), dev)
-            sy, sx = st.stride
-            out = out[::sy, ::sx]
-        if types is not None:
-            t = types.get(name)
-            raw = out
-            if t is not None:
-                out = _snap(raw, t)
-            if phase_types is not None and name in phase_types:
-                # one datapath type per sampling-lattice residue; residues
-                # missing from the map keep the union type applied above
-                (my, mx), tmap = phase_types[name]
-                out = out.clone()
-                for (ry, rx), t_ph in sorted(tmap.items()):
-                    out[ry::my, rx::mx] = _snap(raw[ry::my, rx::mx], t_ph)
+        with obs.span("exec.stage", stage=name, input=st.is_input):
+            if st.is_input:
+                x = inputs[name]
+                x = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+                    np.asarray(x))
+                out = x.to(dev, torch.float64)
+            else:
+                H, W = env[st.inputs[0]].shape
+                H, W = H * st.upsample[0], W * st.upsample[1]
+                hy, hx = st.halo_yx()
+                padded = {i: B.upsample_pad(env[i], st.upsample, (hy, hx))
+                          for i in st.inputs}
+                out = B.eval_tensor_expr(
+                    st.expr, lambda s, dy, dx: padded[s][
+                        hy + dy:hy + dy + H, hx + dx:hx + dx + W],
+                    params, torch.float64, (H, W), dev)
+                sy, sx = st.stride
+                out = out[::sy, ::sx]
+            if types is not None:
+                t = types.get(name)
+                raw = out
+                if t is not None:
+                    out = _snap(raw, t)
+                if phase_types is not None and name in phase_types:
+                    # one datapath type per sampling-lattice residue;
+                    # residues missing from the map keep the union type
+                    (my, mx), tmap = phase_types[name]
+                    out = out.clone()
+                    for (ry, rx), t_ph in sorted(tmap.items()):
+                        out[ry::my, rx::mx] = _snap(raw[ry::my, rx::mx],
+                                                    t_ph)
         env[name] = out.contiguous()
+        if obs.runtime_ranges_enabled():
+            # read-only: measures the already-snapped stage value, never
+            # feeds back into the computation
+            obs.runtime.record_stage(
+                name, env[name],
+                types.get(name) if types is not None else None,
+                (phase_types or {}).get(name), backend="interp")
     return env
 
 

@@ -43,6 +43,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core import npops
 from repro_torch.lowering import backends as B
 from repro_torch.lowering.ir import LoweringError
 
@@ -160,12 +161,15 @@ class EncodedProgram:
 # ---------------------------------------------------------------------------
 
 class _Sym:
-    """A symbolic f64 value: the postfix code that computes it."""
-    __slots__ = ("code", "pool")
+    """A symbolic f64 value: the postfix code that computes it.  A tap of
+    an integer-stored stage also carries its grid ``(qabs, beta)``: the
+    value is ``q * 2^-beta`` with ``|q| <= qabs``."""
+    __slots__ = ("code", "pool", "grid")
 
-    def __init__(self, code, pool):
+    def __init__(self, code, pool, grid=None):
         self.code = code
         self.pool = pool
+        self.grid = grid
 
     def __add__(self, o): return _emit(self.pool, OP_ADD, self, o)
     def __radd__(self, o): return _emit(self.pool, OP_ADD, o, self)
@@ -183,12 +187,49 @@ class _Sym:
     def __ge__(self, o): return _emit(self.pool, OP_GE, self, o)
 
     def __pow__(self, n):
-        # numpy evaluates ``x ** 2`` on f64 as ``x * x``; no pipeline
-        # uses another power, so none is encoded until a test pins it
-        if n != 2:
-            raise LoweringError(f"the band kernel encodes only x ** 2, "
-                                f"not x ** {n}")
-        return _emit(self.pool, OP_SQR, self)
+        # numpy's ``x ** n``: 1 for n = 0, x for n = 1, ``x * x`` for 2;
+        # other powers are the C library's `pow`, which the kernel matches
+        # only where the product is exact (`_exact_power`)
+        if n == 0:
+            return _lift(1.0, self.pool)
+        if n == 1:
+            return self
+        if n == 2:
+            return _emit(self.pool, OP_SQR, self)
+        reason = _exact_power(self, n)
+        if reason is not None:
+            raise LoweringError(f"the band kernel cannot encode x ** {n} "
+                                f"bit-equal to numpy's pow: {reason}")
+        out = self
+        for _ in range(n - 1):
+            out = _emit(self.pool, OP_MUL, out, self)
+        return out
+
+
+def _exact_power(x: _Sym, n: int) -> Optional[str]:
+    """Why ``x ** n`` (n >= 3 or n < 0) has no exact product form, or
+    None where it has one.
+
+    numpy's power of a float array is the C library's `pow`, accurate to
+    about half an ulp but not correctly rounded in general.  Where the
+    exact power is a double, though, `pow` returns it, and so does every
+    order of products: x is a tap of an integer-stored stage, ``q *
+    2^-beta`` with ``|q| <= qabs``, and ``qabs^n <= 2^53`` bounds every
+    partial product's significand, with the exponent kept inside the
+    double's range.  A negative power is a quotient that `pow` need not
+    round as a division does."""
+    if n < 0:
+        return "a negative power is a rounded quotient"
+    if x.grid is None:
+        return ("the base is not a tap of an integer-stored stage, so its "
+                "value has no proven grid")
+    qabs, beta = x.grid
+    if qabs ** n > 1 << 53:
+        return (f"the base's grid needs {qabs.bit_length()} bits, and "
+                f"{qabs.bit_length()} x {n} exceeds the double's 53")
+    if not -971 <= beta * n <= 1074:
+        return f"2^-{beta} to the power {n} leaves the double's range"
+    return None
 
 
 def _lift(v, pool) -> _Sym:
@@ -477,7 +518,12 @@ def encode_program(program: Sequence[Dict], col_tile: Optional[int] = None,
         xp = _EmitXP(fconst)
 
         def ref(stage, dy, dx):
-            return _Sym([(OP_REF, index[stage], dy, dx)], fconst)
+            src = program[index[stage]]
+            t = src["ls"].t
+            grid = None
+            if t is not None and src["dtype"] != torch.float64:
+                grid = (max(abs(t.int_min), t.int_max), t.beta)
+            return _Sym([(OP_REF, index[stage], dy, dx)], fconst, grid)
 
         first_const = len(fconst)
         code = _lift(B.eval_expr(st.expr, ref, d["params"], xp, xp.where),
@@ -746,7 +792,7 @@ def eval_band_reference(enc: EncodedProgram, inputs: Sequence[torch.Tensor],
             elif op in (OP_SQR, OP_ABS, OP_SQRT):
                 x = stack.pop()
                 stack.append(x * x if op == OP_SQR else
-                             torch.abs(x) if op == OP_ABS else torch.sqrt(x))
+                             torch.abs(x) if op == OP_ABS else npops.sqrt(x))
             elif op == OP_SELECT:
                 y, x, cond = stack.pop(), stack.pop(), stack.pop()
                 if cond.dtype != torch.bool:
@@ -773,8 +819,8 @@ def eval_band_reference(enc: EncodedProgram, inputs: Sequence[torch.Tensor],
 _BINARY: Dict[int, Callable] = {
     OP_ADD: torch.add, OP_SUB: torch.sub, OP_MUL: torch.mul,
     OP_DIV: torch.div,
-    # numpy's minimum/maximum propagate NaN, and so do torch's
-    OP_MIN: torch.minimum, OP_MAX: torch.maximum,
+    # numpy's operand rules for NaN and +-0 (`core.npops`), as the kernel's
+    OP_MIN: npops.minimum, OP_MAX: npops.maximum,
     OP_LT: torch.lt, OP_LE: torch.le, OP_GT: torch.gt, OP_GE: torch.ge,
 }
 

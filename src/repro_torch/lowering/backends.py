@@ -35,6 +35,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
+from repro_torch.core import npops
 from repro_torch.core.fixedpoint import FixedPointType
 from repro_torch.core.graph import (BinOp, Call, Cmp, Const, Expr, ParamRef,
                                     Pow, Ref, Select)
@@ -362,9 +364,7 @@ class _Val:
     def __gt__(self, o): return _Val(torch.gt(self.t, self._o(o)))
     def __ge__(self, o): return _Val(torch.ge(self.t, self._o(o)))
 
-    def __pow__(self, n):
-        # numpy's ``x ** 2`` on floats is ``x * x`` (np.square)
-        return _Val(self.t * self.t if n == 2 else torch.pow(self.t, n))
+    def __pow__(self, n): return _Val(npops.npow(self.t, n))
 
 
 class _TorchXP:
@@ -378,11 +378,11 @@ class _TorchXP:
             return x.t
         return torch.tensor(x, dtype=self.dtype, device=self.device)
 
+    # numpy's rules for sqrt, min and max (`core.npops`)
     def abs(self, x): return _Val(torch.abs(self._t(x)))
-    def sqrt(self, x): return _Val(torch.sqrt(self._t(x)))
-    # numpy's minimum/maximum propagate NaN, and so do torch's
-    def minimum(self, a, b): return _Val(torch.minimum(self._t(a), self._t(b)))
-    def maximum(self, a, b): return _Val(torch.maximum(self._t(a), self._t(b)))
+    def sqrt(self, x): return _Val(npops.sqrt(self._t(x)))
+    def minimum(self, a, b): return _Val(npops.minimum(self._t(a), self._t(b)))
+    def maximum(self, a, b): return _Val(npops.maximum(self._t(a), self._t(b)))
 
     def where(self, c, a, b):
         cond = self._t(c)
@@ -468,11 +468,15 @@ def compile_interp(lp: LoweredPipeline,
         imgs, names = normalize_images(lp, image)
         arrs = [to_f64(im, n) for im, n in zip(imgs, names)]
         check_stage_shapes(lp, arrs[0].shape[-2:])
-        if all(a.ndim == 3 for a in arrs):
-            per = [one(dict(zip(names, [a[b] for a in arrs])))
-                   for b in range(arrs[0].shape[0])]
-            return {k: torch.stack([p[k] for p in per]) for k in outs}
-        return one(dict(zip(names, arrs)))
+        # per-stage spans and runtime range telemetry live inside
+        # `_run_concrete` (it sees every intermediate stage value)
+        with obs.span("exec.interp", backend="interp",
+                      pipeline=lp.pipeline.name, outputs=len(outs)):
+            if all(a.ndim == 3 for a in arrs):
+                per = [one(dict(zip(names, [a[b] for a in arrs])))
+                       for b in range(arrs[0].shape[0])]
+                return {k: torch.stack([p[k] for p in per]) for k in outs}
+            return one(dict(zip(names, arrs)))
 
     run.lowered = lp
     return run
@@ -580,7 +584,59 @@ def compile_lowered(lp: LoweredPipeline,
                                 f"of one shape; got "
                                 f"{[tuple(x.shape) for x in xs]}")
         check_stage_shapes(lp, xs[0].shape[-2:])
-        return forward(dict(zip(names, xs)))
+        with obs.span("exec.lowered", backend="lowered",
+                      pipeline=lp.pipeline.name, outputs=len(outs)) as sp:
+            if xs[0].ndim == 3:
+                sp.set(batch=int(xs[0].shape[0]))
+            res = forward(dict(zip(names, xs)))
+        # read-only post-processing: never feeds back into the computation
+        obs.runtime.record_env(res, lp, backend="lowered")
+        return res
 
     run.lowered = lp
     return run
+
+
+# ---------------------------------------------------------------------------
+# the compile front door
+# ---------------------------------------------------------------------------
+
+COMPILE_BACKENDS = ("cuda", "torch", "lowered", "interp")
+
+
+def compile_backend(lp: LoweredPipeline, backend: str = "cuda",
+                    outputs: Optional[Sequence[str]] = None,
+                    device: DeviceLike = None) -> Executor:
+    """An executor of `lp` on `backend`: ``"cuda"`` (the band kernel,
+    `lowering.cuda_backend`), ``"torch"`` (its plain version),
+    ``"lowered"`` (`compile_lowered`) or ``"interp"`` (`compile_interp`).
+    `outputs` defaults to the pipeline's outputs."""
+    if backend not in COMPILE_BACKENDS:
+        raise LoweringError(f"unknown lowering backend {backend!r}; "
+                            f"expected one of {COMPILE_BACKENDS}")
+    kinds = lp.kinds()
+    with obs.span("lowering.compile", backend=backend,
+                  pipeline=lp.pipeline.name, n_stages=len(lp.stages),
+                  intlinear=sum(1 for k in kinds.values()
+                                if k == "intlinear")):
+        if backend in ("cuda", "torch"):
+            from repro_torch.lowering.cuda_backend import compile_cuda
+            return compile_cuda(lp, device=device, plain=backend == "torch",
+                                outputs=outputs)
+        compile_ = compile_lowered if backend == "lowered" else compile_interp
+        return compile_(lp, outputs=outputs, device=device)
+
+
+def compile_pipeline(pipeline, types, params: Optional[Dict[str, float]] = None,
+                     backend: str = "cuda",
+                     outputs: Optional[Sequence[str]] = None,
+                     column: Optional[str] = None, datapath: str = "exact",
+                     device: DeviceLike = None) -> Executor:
+    """Lower and compile in one call (the reference's
+    `repro.lowering.compile_pipeline`; its ``"jnp"`` and ``"pallas"`` are
+    the port's ``"lowered"`` and ``"cuda"``).  Not memoized: each call
+    lowers and compiles anew (`dsl.exec.run_fixed` keeps a memo)."""
+    from repro_torch.lowering.ir import lower
+    lp = lower(pipeline, types, params=params, column=column,
+               datapath=datapath)
+    return compile_backend(lp, backend, outputs=outputs, device=device)

@@ -63,6 +63,17 @@ def island_program(lp: LoweredPipeline, isl: Island) -> List[Dict]:
     return program
 
 
+def _island_attrs(lp: LoweredPipeline, isl: Island) -> Dict:
+    """The `exec.cuda.island` span's attributes (the reference's
+    `exec.pallas.island`): geometry, datapath and container census, and
+    the boundary bytes one image stores."""
+    out_b, saved_b = isl.boundary_bytes(lp)
+    return dict(island=isl.idx, rate=str(isl.rate), stages=len(isl.stages),
+                grid=isl.schedule.grid, single_tile=isl.single_tile,
+                carriers=isl.carrier_mix(lp), containers=isl.stored_mix(lp),
+                out_mb=round(out_b / 1e6, 4), saved_mb=round(saved_b / 1e6, 4))
+
+
 def _written(lp: LoweredPipeline, isl: Island) -> List[str]:
     """The island's outputs the kernel writes, in its output slots."""
     return [n for n in isl.outputs if not lp.stages[n].stage.is_input]
@@ -83,14 +94,15 @@ def compile_cuda(lp: LoweredPipeline, device: DeviceLike = None,
     order = B.needed_stages(lp, outs)
     input_names = [n for n in order if lp.stages[n].stage.is_input]
     kernel = fused_pipeline_reference if plain else fused_pipeline
-    cache: Dict[tuple, List[Tuple[Island, EncodedProgram]]] = {}
+    backend = "torch" if plain else "cuda"
+    cache: Dict[tuple, List[Tuple[Island, EncodedProgram, Dict]]] = {}
     lock = threading.Lock()
 
-    def build(shape) -> List[Tuple[Island, EncodedProgram]]:
+    def build(shape) -> List[Tuple[Island, EncodedProgram, Dict]]:
         B.check_stage_shapes(lp, shape[-2:])
         plan = partition_islands(lp, tuple(shape[-2:]), outputs=outs)
-        return [(isl, encode_program(island_program(lp, isl)))
-                for isl in plan.islands]
+        return [(isl, encode_program(island_program(lp, isl)),
+                 _island_attrs(lp, isl)) for isl in plan.islands]
 
     def run(image) -> Dict[str, torch.Tensor]:
         imgs, names = B.normalize_images(lp, image)
@@ -115,18 +127,32 @@ def compile_cuda(lp: LoweredPipeline, device: DeviceLike = None,
             x = x.to(dev, non_blocking=True)
             buffers[n] = B.ingest_input(x.contiguous(), lp.stages[n])
         batch = shape[0] if len(shape) == 3 else None
-        with lock:
-            if shape not in cache:
-                with obs.span("lowering.encode", pipeline=lp.pipeline.name,
-                              shape=shape):
-                    cache[shape] = build(shape)
-            compiled = cache[shape]
-        for isl, enc in compiled:
-            call = kernel(enc, isl.schedule.grid, batch)
-            for n, arr in zip(_written(lp, isl),
-                              call(*[buffers[n] for n in isl.inputs])):
-                buffers[n] = arr
-        return {n: B.dequant(lp.stages[n], buffers[n]) for n in outs}
+        with obs.span("exec.cuda", backend=backend,
+                      pipeline=lp.pipeline.name, outputs=len(outs)) as sp:
+            if batch is not None:
+                sp.set(batch=batch)
+            with lock:
+                if shape not in cache:
+                    sp.set(kernel_cache="miss")
+                    with obs.span("lowering.encode",
+                                  pipeline=lp.pipeline.name, shape=shape):
+                        cache[shape] = build(shape)
+                else:
+                    sp.set(kernel_cache="hit")
+                compiled = cache[shape]
+            sp.set(islands=len(compiled))
+            for isl, enc, attrs in compiled:
+                call = kernel(enc, isl.schedule.grid, batch)
+                with obs.span("exec.cuda.island", **attrs):
+                    for n, arr in zip(_written(lp, isl),
+                                      call(*[buffers[n]
+                                             for n in isl.inputs])):
+                        buffers[n] = arr
+            res = {n: B.dequant(lp.stages[n], buffers[n]) for n in outs}
+        # the band kernel keeps intermediates in its bands, so telemetry
+        # covers the island boundaries asked for and the outputs only
+        obs.runtime.record_env(res, lp, backend=backend)
+        return res
 
     run.lowered = lp
     return run

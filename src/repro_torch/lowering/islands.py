@@ -39,7 +39,7 @@ import dataclasses
 from fractions import Fraction
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from repro_torch.lowering.backends import needed_stages
+from repro_torch.lowering.backends import needed_stages, store_dtype
 from repro_torch.lowering.ir import LoweredPipeline, LoweringError
 from repro_torch.lowering.schedule import (Schedule, build_island_schedule,
                                            single_tile_schedule,
@@ -56,6 +56,36 @@ class Island:
     rate: Fraction             # first stage's rows per root-image row
     schedule: Schedule
     single_tile: bool          # True when on the one-tile escape hatch
+
+    def carrier_mix(self, lp: LoweredPipeline) -> str:
+        """Compact datapath census for telemetry, e.g. 'int32x3,f64x1'."""
+        counts: Dict[str, int] = {}
+        for n in self.stages:
+            ls = lp.stages[n]
+            label = ls.carrier if ls.kind == "intlinear" else ls.expr_dtype
+            counts[label] = counts.get(label, 0) + 1
+        return ",".join(f"{k}x{v}" for k, v in sorted(counts.items()))
+
+    def stored_mix(self, lp: LoweredPipeline) -> str:
+        """Stored-container census (legalized tile dtypes), e.g.
+        'int16x3,uint8x1' — the storage-side twin of `carrier_mix`."""
+        counts: Dict[str, int] = {}
+        for n in self.stages:
+            label = str(store_dtype(lp.stages[n])).split(".")[-1]
+            counts[label] = counts.get(label, 0) + 1
+        return ",".join(f"{k}x{v}" for k, v in sorted(counts.items()))
+
+    def boundary_bytes(self, lp: LoweredPipeline) -> Tuple[int, int]:
+        """(stored, saved) bytes of this island's materialized outputs per
+        image — `saved` relative to a uniform int32 baseline (negative
+        for f64-stored boundaries)."""
+        stored = saved = 0
+        for n in self.outputs:
+            ss = self.schedule.stages[n]
+            nb = store_dtype(lp.stages[n]).itemsize
+            stored += ss.H * ss.W * nb
+            saved += ss.H * ss.W * (4 - nb)
+        return stored, saved
 
 
 @dataclasses.dataclass

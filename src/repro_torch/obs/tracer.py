@@ -1,22 +1,27 @@
 """Hierarchical span tracer and typed counters (port of `repro.obs.tracer`).
 
-Standard library only.  `analysis.driver.run_plan` emits into it, so "where
-did a plan's time go?" has an answer per pass.
+Standard library only.  The analysis driver, the design search, the
+executors and the SMT engine emit into it, so "where did a plan's time
+go?" has an answer per pass, per stage and per island.
 
   * **spans** — `with span("analysis.pass", column=...) as sp:` records
     a monotonic `[t0, t1)` interval with nested parent ids (a span stack
     per thread); `sp.set(k=v)` attaches attributes mid-flight.
   * **events** — `event(name, **attrs)` is an instant marker attached
-    to the current span.
-  * **counters** — `CounterGroup` is a dict subclass with a lock,
-    `add()` and `reset()`: `analysis.driver.MEMO_STATS` /
-    `DISK_CACHE_STATS` and `dsl.exec.EXEC_CACHE_STATS` are such groups,
-    so `STATS["hits"]`-style reads keep working.
+    to the current span (`rt.range` telemetry records are events).
+  * **counters / gauges** — `CounterGroup` is a dict subclass with a
+    lock, `add()` and `reset()`: `analysis.driver.MEMO_STATS` /
+    `DISK_CACHE_STATS`, `dsl.exec.EXEC_CACHE_STATS` and
+    `smt.solver.STATS` are such groups, so `STATS["hits"]`-style reads
+    keep working; every group registers itself (`all_counters()`).
+    `gauge(name, value)` samples a numeric time series.
 
-Tracing is off by default and free when off: `span` and `event` check
-one global and return a shared no-op object.  `with tracing() as tr:`
-turns it on for a scope.  The exporters, the per-stage runtime
-telemetry and the report of `repro.obs` are not ported yet.
+Tracing is off by default and free when off: `span`, `event` and
+`gauge` check one global and return a shared no-op object.  Turn it on
+with `enable()` (off again with `disable()`) or for a scope with `with
+tracing() as tr:`; `runtime_ranges=True` also asks the executors for
+per-stage range telemetry (`obs.runtime`).  `obs.exporters` writes a
+tracer as JSONL or as a Chrome trace.
 """
 from __future__ import annotations
 
@@ -25,15 +30,24 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
-__all__ = ["CounterGroup", "Span", "Tracer", "event", "span", "tracing"]
+__all__ = [
+    "CounterGroup", "Span", "Tracer", "active_tracer", "all_counters",
+    "disable", "enable", "event", "gauge", "is_enabled",
+    "runtime_ranges_enabled", "span", "tracing",
+]
+
+_COUNTER_REGISTRY: Dict[str, "CounterGroup"] = {}
+_REGISTRY_LOCK = threading.Lock()
 
 
 class CounterGroup(dict):
     """A named group of counters: a locked, resettable dict.
 
     Subclassing `dict` keeps readers byte-compatible (`STATS["hits"]`,
-    `dict(STATS)`); `add()` mutates under a lock and `reset()` restores
-    the declared initial values.
+    `dict(STATS)`); `add()` mutates under a lock, `reset()` restores
+    the declared initial values, and the group registers itself so the
+    exporters can snapshot every counter in the process
+    (`all_counters()`).
     """
 
     def __init__(self, name: str, **initial):
@@ -41,6 +55,8 @@ class CounterGroup(dict):
         self.name = name
         self._initial = dict(initial)
         self._lock = threading.Lock()
+        with _REGISTRY_LOCK:
+            _COUNTER_REGISTRY[name] = self
 
     def add(self, key: str, n=1):
         """Locked increment; returns the new value."""
@@ -49,11 +65,27 @@ class CounterGroup(dict):
             super().__setitem__(key, v)
             return v
 
+    def set(self, key: str, value):
+        """Locked gauge-style assignment."""
+        with self._lock:
+            super().__setitem__(key, value)
+
     def reset(self) -> None:
         """Restore the declared initial values (drop any extra keys)."""
         with self._lock:
             super().clear()
             super().update(self._initial)
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            return dict(self)
+
+
+def all_counters() -> Dict[str, Dict[str, Any]]:
+    """{group name: {counter: value}} over every registered group."""
+    with _REGISTRY_LOCK:
+        groups = list(_COUNTER_REGISTRY.values())
+    return {g.name: g.snapshot() for g in groups}
 
 
 # ---------------------------------------------------------------------------
@@ -123,9 +155,17 @@ _NULL = _NullSpan()
 
 
 class Tracer:
-    """Thread-safe collector of spans and instant events."""
+    """Thread-safe collector of spans, instant events and gauge samples.
 
-    def __init__(self):
+    `runtime_ranges=True` opts the executors into per-stage observed-range
+    / saturation / alpha-headroom telemetry (`obs.runtime`); plain
+    tracing never touches pixel data.
+    """
+
+    def __init__(self, runtime_ranges: bool = False):
+        self.runtime_ranges = runtime_ranges
+        self.t0 = time.perf_counter()
+        self.wall_t0 = time.time()
         self._ids = itertools.count(1)     # .__next__ is atomic under the GIL
         self._lock = threading.Lock()
         self._spans: List[Span] = []
@@ -159,7 +199,14 @@ class Tracer:
         with self._lock:
             self._events.append(rec)
 
-    # -- queries -------------------------------------------------------------
+    def gauge(self, name: str, value, **attrs) -> None:
+        rec = {"kind": "gauge", "name": name,
+               "ts": time.perf_counter(), "value": value,
+               "thread": threading.get_ident(), "attrs": attrs}
+        with self._lock:
+            self._events.append(rec)
+
+    # -- queries (exporters and tests) ---------------------------------------
     def spans(self, name: Optional[str] = None) -> List[Span]:
         with self._lock:
             out = list(self._spans)
@@ -167,10 +214,16 @@ class Tracer:
             out = [s for s in out if s.name == name]
         return sorted(out, key=lambda s: (s.t0, s.span_id))
 
-    def events(self) -> List[dict]:
+    def events(self, name: Optional[str] = None) -> List[dict]:
         with self._lock:
             out = list(self._events)
+        if name is not None:
+            out = [e for e in out if e["name"] == name]
         return sorted(out, key=lambda e: e["ts"])
+
+    def us(self, t: float) -> float:
+        """Monotonic seconds -> microseconds since this tracer's origin."""
+        return (t - self.t0) * 1e6
 
 
 # ---------------------------------------------------------------------------
@@ -180,16 +233,44 @@ class Tracer:
 _ACTIVE: Optional[Tracer] = None
 
 
+def enable(runtime_ranges: bool = False) -> Tracer:
+    """Install (and return) a fresh process-wide tracer."""
+    global _ACTIVE
+    _ACTIVE = Tracer(runtime_ranges=runtime_ranges)
+    return _ACTIVE
+
+
+def disable() -> Optional[Tracer]:
+    """Remove the active tracer; returns it (for export)."""
+    global _ACTIVE
+    t, _ACTIVE = _ACTIVE, None
+    return t
+
+
+def active_tracer() -> Optional[Tracer]:
+    return _ACTIVE
+
+
+def is_enabled() -> bool:
+    return _ACTIVE is not None
+
+
+def runtime_ranges_enabled() -> bool:
+    t = _ACTIVE
+    return t is not None and t.runtime_ranges
+
+
 class tracing:
     """`with tracing() as tr:` — scoped enable/restore (tests, harnesses)."""
 
-    def __init__(self):
+    def __init__(self, runtime_ranges: bool = False):
+        self.runtime_ranges = runtime_ranges
         self._prev: Optional[Tracer] = None
 
     def __enter__(self) -> Tracer:
         global _ACTIVE
         self._prev = _ACTIVE
-        _ACTIVE = Tracer()
+        _ACTIVE = Tracer(runtime_ranges=self.runtime_ranges)
         return _ACTIVE
 
     def __exit__(self, *a):
@@ -214,3 +295,9 @@ def event(name: str, **attrs) -> None:
     t = _ACTIVE
     if t is not None:
         t.event(name, **attrs)
+
+
+def gauge(name: str, value, **attrs) -> None:
+    t = _ACTIVE
+    if t is not None:
+        t.gauge(name, value, **attrs)

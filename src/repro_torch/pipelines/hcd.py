@@ -44,6 +44,8 @@ def build() -> Pipeline:
 
 
 def corner_threshold(ref_harris) -> float:
-    """Classification threshold: a fixed fraction of the max response."""
-    import numpy as np
-    return 0.01 * float(np.max(np.asarray(ref_harris)))
+    """Classification threshold: a fixed fraction of the max response
+    (reduced where the values are: an array, or a tensor on any
+    device)."""
+    import torch
+    return 0.01 * float(torch.as_tensor(ref_harris).max())

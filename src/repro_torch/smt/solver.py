@@ -45,6 +45,10 @@ import torch
 from repro_torch import obs
 from repro_torch.core.affine import AffineForm
 from repro_torch.core.interval import Interval
+from repro_torch.core.npops import (fmax as _fmax, fmin as _fmin,
+                                    maximum as _maximum, minimum as _minimum,
+                                    npow as _npow, power as _power,
+                                    sqrt as _sqrt)
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.smt.encoder import (CONST, CSP, Def, DeviceProgram, Program,
@@ -808,13 +812,14 @@ def _check_witness(csp, box, root, maximize, threshold, best):
 # and on the card alike: elementwise IEEE arithmetic, numpy's choice of
 # operand in maximum/minimum/fmax/fmin (`_maximum` and friends), numpy's
 # first-index argmax (`_argmax_rows`), numpy's pairwise order for the
-# affine radius (`_pw_rowsum`), squares as products and correctly rounded
-# square roots (`_sqrt`; numpy's `** 2` and `** 0.5`).  Divisions whose
+# affine radius (`_pw_rowsum`), and numpy's square roots and powers
+# (`_sqrt`, `_npow`, `_power`; `core.npops`).  Divisions whose
 # numerator is a constant go through `reciprocal` only where the numerator
 # is +-1 or a power of two, and no divisor is ever a host scalar (a CUDA
-# division by one is a multiplication by its reciprocal).  Other powers
-# than 0, 1 and 2 (no benchmark has one) use `torch.pow`, which may
-# differ from numpy's in the last place.  Data-dependent branches read one device flag each,
+# division by one is a multiplication by its reciprocal).  On the card a
+# power other than 0, 1 and 2 (no benchmark has one) is torch's `pow`,
+# which may differ from numpy's in the last place.  Data-dependent
+# branches read one device flag each,
 # as numpy's do; which boxes the frontier pops is decided on the host by
 # numpy's own `argpartition` over a host copy of the scores.
 
@@ -826,31 +831,6 @@ def _any(x) -> bool:
     return bool(x.any())
 
 
-def _isnan(x):
-    return torch.isnan(x) if isinstance(x, torch.Tensor) else math.isnan(x)
-
-
-def _maximum(a, b):
-    """`np.maximum` of a tensor `a` and a tensor or number `b`: a NaN
-    operand propagates; of two equal operands (+0 and -0) the second."""
-    return torch.where((a > b) | torch.isnan(a), a, b)
-
-
-def _minimum(a, b):
-    """`np.minimum`, with `_maximum`'s rules."""
-    return torch.where((a < b) | torch.isnan(a), a, b)
-
-
-def _fmax(a, b):
-    """`np.fmax`: a NaN operand is ignored; of two equal ones the second."""
-    return torch.where((a > b) | _isnan(b), a, b)
-
-
-def _fmin(a, b):
-    """`np.fmin`, with `_fmax`'s rules."""
-    return torch.where((a < b) | _isnan(b), a, b)
-
-
 def _argmax_rows(x):
     """`np.argmax(x, axis=1)`: the first maximum, or the first NaN."""
     k = torch.argmax(x, dim=1)
@@ -859,26 +839,6 @@ def _argmax_rows(x):
         k = torch.where(nan.any(dim=1),
                         torch.argmax(nan.to(torch.int8), dim=1), k)
     return k
-
-
-def _sqrt(x):
-    """IEEE square root (numpy's `np.sqrt`, CUDA's `sqrt`).  torch's CPU
-    `sqrt` is off by one in the last place on some inputs (it is not
-    correctly rounded), so a CPU tensor takes numpy's."""
-    if x.device.type == "cpu":
-        return torch.from_numpy(np.sqrt(x.numpy()))
-    return torch.sqrt(x)
-
-
-def _npow(x, n: int):
-    """numpy's `x ** n` for an integer n (see the section comment)."""
-    if n == 0:
-        return torch.ones_like(x)
-    if n == 1:
-        return x
-    if n == 2:
-        return x * x
-    return torch.pow(x, float(n))
 
 
 _PW_PLANS: Dict[int, tuple] = {}
@@ -1078,7 +1038,7 @@ def _b_root(x, n: int):
     elif n == 2:
         r = _sqrt(ax)
     else:
-        r = torch.pow(ax, 1.0 / n)
+        r = _power(ax, 1.0 / n)
     return torch.where(x > 0, r, 0.0)
 
 

@@ -832,3 +832,119 @@ def test_smt_designs_kernel_equals_plain_version(cuda, name):
         if col == "smt-phase-split" and name != "usm":
             assert design.phases, name
         _check(pipe, _inputs(name, (2, 96, 128), 80), design, params, cuda)
+
+
+# ---------------------------------------------------------------------------
+# numpy's elementwise rules in the band kernel; telemetry and Table 12
+# ---------------------------------------------------------------------------
+
+def _rule_pipes():
+    """(name, pipeline, types, input range): a sqrt stage, 1 / min and
+    1 / max of zeros of both signs, and an exact cube (the chain of
+    products the encoder emits)."""
+    from repro_torch.dsl.builder import PipelineBuilder, maxv, minv, sqrtv
+    out = []
+    p = PipelineBuilder("sqrt")
+    a = p.image("a", 0, 1 << 20)
+    p.define("s", sqrtv(a))
+    out.append(("sqrt", p.build(),
+                {"a": FixedPointType(21, 12, False), "s": None}, 1 << 20))
+    p = PipelineBuilder("zeros")
+    a = p.image("a", 0, 15)
+    z1 = p.define("z1", (a - 8.0) * 0.0)
+    z2 = p.define("z2", (8.0 - a) * 0.0)
+    p.define("inv_min", 1.0 / minv(z1, z2))
+    p.define("inv_max", 1.0 / maxv(z1, z2))
+    out.append(("signed_zero", p.build(),
+                {"a": FixedPointType(4, 0, False), "z1": None, "z2": None,
+                 "inv_min": None, "inv_max": None}, 16))
+    p = PipelineBuilder("cube")
+    a = p.image("a", 0, 15)
+    b = p.define("b", a * 0.37 + 1.3)
+    p.define("c", a ** 3)
+    p.define("f", b ** 5 - b ** 1 + b ** 0)
+    out.append(("cube", p.build(),
+                {"a": FixedPointType(4, 0, False),
+                 "b": FixedPointType(5, 5, False),
+                 "c": FixedPointType(13, 0, False), "f": None}, 16))
+    return out
+
+
+@pytest.mark.parametrize("case", ["sqrt", "signed_zero", "cube"])
+def test_numpy_rules_through_the_band_kernel(cuda, case):
+    """The band kernel, its plain version on the card and the per-stage
+    oracle on the CPU (held to the reference's numpy by the CPU tests),
+    bit for bit, the sign of a zero included."""
+    name, pipe, types, hi = next(r for r in _rule_pipes() if r[0] == case)
+    rng = np.random.default_rng(len(case))
+    img = rng.integers(0, hi, (2, 37, 45)).astype(np.float64)
+    if case == "sqrt":
+        img = img + np.round(rng.random(img.shape) * 4096) / 4096
+    outs = list(pipe.outputs) + [n for n in pipe.stages
+                                 if n not in pipe.outputs
+                                 and n != "a"]
+    before = K.LAUNCHES["fused_band"]
+    got = run_fixed(pipe, img, types, backend="cuda", device=cuda,
+                    outputs=outs)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fused_band"] > before
+    plain = run_fixed(pipe, img, types, backend="torch", device=cuda,
+                      outputs=outs)
+    oracle = run_fixed(pipe, img, types, backend="interp", device="cpu")
+    assert sorted(got) == sorted(outs)
+    for k in outs:
+        g = got[k].cpu().numpy()
+        assert np.array_equal(g.view(np.int64),
+                              plain[k].cpu().numpy().view(np.int64)), k
+        assert np.array_equal(g.view(np.int64),
+                              oracle[k].numpy().view(np.int64)), k
+
+
+def _rt_records(fn):
+    from repro_torch import obs
+    with obs.tracing(runtime_ranges=True) as tr:
+        fn()
+    return [dict(e["attrs"]) for e in tr.events("rt.range")]
+
+
+@pytest.mark.parametrize("name", ["usm", "dus_ext"])
+def test_rt_range_on_the_card_equals_the_cpu(cuda, name):
+    """`rt.range` records reduced on the card (one small copy a stage)
+    equal the CPU's, for the band kernel against its plain version and
+    for the per-stage walk; the outputs with telemetry on equal those
+    with it off."""
+    pipe, params = ALL[name](), PARAMS.get(name, {})
+    design = load_types(name)
+    img = _frames((3, 64, 80), 21)
+    for backend, ref_backend in (("cuda", "torch"), ("interp", "interp")):
+        got = _rt_records(lambda: run_fixed(pipe, img, design, params,
+                                            backend=backend, device=cuda))
+        want = _rt_records(lambda: run_fixed(pipe, img, design, params,
+                                             backend=ref_backend,
+                                             device="cpu"))
+        assert got and [dict(r, backend=ref_backend) for r in got] == want
+    from repro_torch import obs
+    with obs.tracing(runtime_ranges=True):
+        on = run_fixed(pipe, img, design, params, backend="cuda",
+                       device=cuda)
+    off = run_fixed(pipe, img, design, params, backend="cuda", device=cuda)
+    assert all(torch.equal(on[k], off[k]) for k in off)
+
+
+def test_table12_search_on_the_card_equals_the_cpu(cuda):
+    """Table XII's design search on a small USM setup (interval +
+    profile plan) through the band kernel equals the CPU's rows."""
+    from repro_torch.benchmarks import paper_tables as PT
+    from repro_torch.pipelines import workflows as W
+    A.clear_memo()
+    cpu = W.make_usm(2, 2, (32, 32), device="cpu")
+    plan = A.run_plan(cpu.pipeline,
+                      ["interval", A.ProfilePass(cpu.train_images,
+                                                 params=cpu.params,
+                                                 device="cpu")],
+                      default_column="interval")
+    before = K.LAUNCHES["fused_band"]
+    got = PT.design_frontier(W.make_usm(2, 2, (32, 32), device=cuda), plan)
+    assert K.LAUNCHES["fused_band"] > before
+    assert got == PT.design_frontier(cpu, plan)
+    A.clear_memo()

@@ -167,3 +167,163 @@ def test_concurrent_calls_compile_one_executor():
     assert E.EXEC_CACHE_STATS["misses"] == misses + 1
     for o in outs[1:]:
         assert torch.equal(o["masked"], outs[0]["masked"])
+
+
+# ---------------------------------------------------------------------------
+# numpy's elementwise rules: sqrt, min/max of +-0, x ** n (`core.npops`)
+# ---------------------------------------------------------------------------
+
+def _bits(x):
+    """f64 values as comparable bits: the sign of a zero counts."""
+    return np.asarray(x, np.float64).view(np.int64)
+
+
+def _sqrt_case(lib, T):
+    p = lib.PipelineBuilder("sqrt")
+    a = p.image("a", 0, 1 << 20)
+    p.define("s", lib.sqrtv(a))
+    return p.build(), {"a": T(21, 12, False), "s": None}
+
+
+def _signed_zero_case(lib, T):
+    # z1 and z2 are zeros of opposite signs wherever a != 8, so 1 / min
+    # and 1 / max are infinities whose signs say which operand was taken
+    p = lib.PipelineBuilder("zeros")
+    a = p.image("a", 0, 15)
+    z1 = p.define("z1", (a - 8.0) * 0.0)
+    z2 = p.define("z2", (8.0 - a) * 0.0)
+    p.define("inv_min", 1.0 / lib.minv(z1, z2))
+    p.define("inv_max", 1.0 / lib.maxv(z1, z2))
+    return p.build(), {"a": T(4, 0, False), "z1": None, "z2": None,
+                       "inv_min": None, "inv_max": None}
+
+
+def _cube_case(lib, T):
+    # c: a cube the band kernel encodes (4-bit base); w: a cube of a
+    # 31-bit grid, which only the per-stage and whole-frame programs run
+    p = lib.PipelineBuilder("cube")
+    a = p.image("a", 0, 15)
+    b = p.define("b", a * 0.37 + 1.3)
+    p.define("c", a ** 3)
+    p.define("w", b ** 3)
+    return p.build(), {"a": T(4, 0, False), "b": T(5, 26, False),
+                       "c": T(13, 0, False), "w": None}
+
+
+NUMPY_RULES = {"sqrt": (_sqrt_case, 1 << 20),
+               "signed_zero": (_signed_zero_case, 16),
+               "cube": (_cube_case, 16)}
+
+
+def _rule_inputs(case):
+    rng = np.random.default_rng(sorted(NUMPY_RULES).index(case))
+    hi = NUMPY_RULES[case][1]
+    return np.round(rng.uniform(0, hi, (24, 23)) * 4096) / 4096 \
+        if case == "sqrt" else rng.integers(0, hi, (24, 23)).astype(float)
+
+
+@pytest.mark.parametrize("backend", ["torch", "interp", "lowered"])
+@pytest.mark.parametrize("case", list(NUMPY_RULES))
+def test_numpy_elementwise_rules_equal_the_oracle(case, backend):
+    """Tolerance 0, the sign of a zero included, against the reference's
+    numpy oracle; the inputs split torch's own rules from numpy's."""
+    import repro.dsl.builder as RB
+    import repro_torch.dsl.builder as PB
+    from repro_torch.core.fixedpoint import FixedPointType
+    make = NUMPY_RULES[case][0]
+    rpipe, rtypes = make(RB, RefType)
+    pipe, types = make(PB, FixedPointType)
+    img = _rule_inputs(case)
+    oracle = ref_run_fixed(rpipe, img, rtypes)
+    t = torch.from_numpy(oracle["a"])
+    if case == "sqrt":       # torch's CPU sqrt is off on some of these
+        assert not np.array_equal(torch.sqrt(t).numpy(), oracle["s"])
+    elif case == "signed_zero":
+        # torch's CPU minimum takes the first of +0 and -0 outside its
+        # vector lanes (rows of 3 here), numpy the second
+        z1, z2 = oracle["z1"][:, :3], oracle["z2"][:, :3]
+        assert not np.array_equal(
+            _bits(torch.minimum(torch.from_numpy(z1),
+                                torch.from_numpy(z2))),
+            _bits(np.minimum(z1, z2)))
+    else:
+        b = torch.from_numpy(oracle["b"])
+        assert not np.array_equal(torch.pow(b, 3.0).numpy(), oracle["w"])
+    if backend == "torch" and case == "cube":
+        with pytest.raises(pl_.LoweringError, match=r"x \*\* 3.*53"):
+            E.run_fixed(pipe, img, types, backend="torch", device="cpu")
+        pipe.outputs.remove("w")
+        rpipe.outputs.remove("w")
+    got = E.run_fixed(pipe, img, types, backend=backend, device="cpu")
+    names = sorted(set(got) & set(oracle))
+    assert set(rpipe.outputs) <= set(names)
+    for k in names:
+        np.testing.assert_array_equal(_bits(got[k].numpy()),
+                                      _bits(oracle[k]), err_msg=k)
+
+
+def test_smt_csp_with_a_cube_equals_the_reference():
+    """The SMT engines on a CSP with cubes: numpy's `x ** 3` and
+    `x ** (1/3)` in the batched transfer functions, hc4 sweeps and
+    concrete evaluation on seeded sub-boxes, every bit; and
+    `analyze_smt` deadline-free, both engines, against `repro.smt`."""
+    import math
+
+    import repro.dsl.builder as RB
+    import repro.smt as RSMT
+    import repro_torch.dsl.builder as PB
+    import repro_torch.smt as PSMT
+    from repro.core.range_analysis import analyze as ref_analyze
+    from repro.smt import encoder as REnc
+    from repro.smt import solver as RS
+    from repro_torch.core.range_analysis import analyze
+    from repro_torch.smt import encoder as PEnc
+    from repro_torch.smt import solver as PS
+
+    def make(lib):
+        p = lib.PipelineBuilder("cube_csp")
+        a = p.image("a", 0, 255)
+        b = p.define("b", a * 0.37 + 1.3)
+        c = p.define("c", b ** 3 - a * 2.1)
+        p.define("d", c - b ** 3 + lib.absv(b - 40.0) ** 3)
+        return p.build()
+
+    rng = np.random.default_rng(5)
+    x = rng.uniform(-1e3, 1e3, 4096)
+    t = torch.from_numpy(x)
+    # torch's own cube differs from numpy's on these
+    assert not np.array_equal(torch.pow(t, 3.0).numpy(), x ** 3)
+    lo, hi = np.minimum(x[::2], x[1::2]), np.maximum(x[::2], x[1::2])
+    for w, g in zip(RS._b_pow(lo, hi, 3), PS._b_pow(torch.from_numpy(lo),
+                                                    torch.from_numpy(hi), 3)):
+        assert np.array_equal(_bits(g.numpy()), _bits(w))
+    assert np.array_equal(_bits(PS._b_root(t, 3).numpy()),
+                          _bits(RS._b_root(x, 3)))
+    rp, pp = make(RB), make(PB)
+    rcsp, _ = REnc.encode_stage(rp, "d", {n: r.range for n, r in
+                                          ref_analyze(rp).items()})
+    pcsp, _ = PEnc.encode_stage(pp, "d", {n: r.range for n, r in
+                                          analyze(pp).items()})
+    rprog, pprog = REnc.compile_csp(rcsp), PEnc.compile_csp(pcsp)
+    u = np.sort(rng.random((2, 40, rprog.nvars)), axis=0)
+    blo = rprog.init_lo + (rprog.init_hi - rprog.init_lo) * u[0]
+    bhi = rprog.init_lo + (rprog.init_hi - rprog.init_lo) * u[1]
+    tlo, thi = torch.from_numpy(blo.copy()), torch.from_numpy(bhi.copy())
+    alive = RS.hc4_batch(rprog, blo, bhi, np.ones(40, bool), 6)
+    talive = PS.hc4_batch(pprog, tlo, thi, torch.ones(40, dtype=torch.bool),
+                          6)
+    assert np.array_equal(alive, talive.numpy())
+    assert np.array_equal(_bits(tlo.numpy()), _bits(blo))
+    assert np.array_equal(_bits(thi.numpy()), _bits(bhi))
+    pts = 0.5 * (blo + bhi)
+    assert np.array_equal(
+        _bits(PS.concrete_batch(pprog, torch.from_numpy(pts)).numpy()),
+        _bits(RS.concrete_batch(rprog, pts)))
+    for engine in ("batched", "scalar"):
+        want = RSMT.analyze_smt(rp, config=RSMT.SMTConfig(
+            engine=engine, time_budget_s=math.inf))
+        got = PSMT.analyze_smt(pp, config=PSMT.SMTConfig(
+            engine=engine, time_budget_s=math.inf), device="cpu")
+        assert {n: (r.range.lo, r.range.hi, r.alpha) for n, r in
+                got.items()} == {n: (r.range.lo, r.range.hi, r.alpha)
+                                 for n, r in want.items()}, engine

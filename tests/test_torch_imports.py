@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro_torch.device import resolve_device
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -41,7 +42,14 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.dse, repro_torch.core.cost_model, "
             "repro_torch.core.beta_search, repro_torch.pipelines.data, "
             "repro_torch.pipelines.metrics, repro_torch.smt, "
-            "repro_torch.smt.solver; "
+            "repro_torch.smt.solver, repro_torch.core.npops, "
+            "repro_torch.obs.exporters, repro_torch.obs.runtime, "
+            "repro_torch.obs.report, repro_torch.pipelines.workflows, "
+            "repro_torch.benchmarks.paper_tables, "
+            "repro_torch.benchmarks.alpha_delta, "
+            "repro_torch.benchmarks.executor_overhead, "
+            "repro_torch.examples.quickstart, "
+            "repro_torch.examples.analyze_pipeline; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -52,7 +60,44 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
 
 def test_the_obs_subpackage_is_checked():
     assert {p.name for p in PORT_FILES if p.parent.name == "obs"} == \
-        {"__init__.py", "tracer.py", "warnonce.py"}
+        {"__init__.py", "exporters.py", "report.py", "runtime.py",
+         "tracer.py", "warnonce.py"}
+
+
+def test_the_benchmarks_and_examples_subpackages_are_checked():
+    port = ROOT / "src" / "repro_torch"
+    assert {p.name for p in PORT_FILES if p.parent == port / "benchmarks"} \
+        == {"__init__.py", "alpha_delta.py", "executor_overhead.py",
+            "paper_tables.py"}
+    assert {p.name for p in PORT_FILES if p.parent == port / "examples"} \
+        == {"__init__.py", "analyze_pipeline.py", "quickstart.py"}
+    assert port / "pipelines" / "workflows.py" in PORT_FILES
+    assert port / "core" / "npops.py" in PORT_FILES
+
+
+def test_the_quickstart_runs_on_the_cpu_when_asked(capsys):
+    """The port's quickstart on the CPU prints the reference's
+    `examples/quickstart.py` analysis, betas, quality and pixel error."""
+    import importlib.util
+    import warnings
+    spec = importlib.util.spec_from_file_location(
+        "reference_quickstart", ROOT / "examples" / "quickstart.py")
+    reference = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reference)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        reference.main()
+    want = capsys.readouterr().out
+    from repro_torch.examples import quickstart
+    assert quickstart.main(["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+
+    def lines(out):
+        keep = ("stages:", "range=", "betas:", "quality:",
+                "max abs pixel error:")
+        return [ln for ln in out.splitlines()
+                if any(k in ln for k in keep)]
+    assert len(lines(want)) == 9 and lines(got) == lines(want), (got, want)
 
 
 def test_the_smt_subpackage_is_checked():

@@ -191,17 +191,57 @@ def test_rhe_shift_equals_the_reference():
         np.testing.assert_array_equal(got, want, err_msg=f"t={t}")
 
 
-def test_encoder_rejects_what_the_kernel_does_not_run():
-    p = PipelineBuilder("cube")
+def _power_pipeline(build, lib, alpha_a=4, beta_a=0):
+    p = lib["builder"]("pow")
     a = p.image("a", 0, 15)
-    p.define("c", a ** 3)
-    pipe = p.build()
-    types = {"a": FixedPointType(4, 0, False),
-             "c": FixedPointType(12, 0, False)}
+    p.define("c", build(a))
+    T = lib["type"]
+    return p.build(), {"a": T(alpha_a, beta_a, True),
+                       "c": T(24, 2, True)}
+
+
+POWERS = {
+    # accepted: a tap of an integer-stored stage whose exact power is a
+    # double, encoded as a chain of products
+    "cube": (lambda a: a ** 3, 4, 0, None),
+    "fifth_fractional": (lambda a: a ** 5 - a ** 0 + a ** 1, 4, 6, None),
+    # refused, each with its reason
+    "wide_base": (lambda a: a ** 3, 18, 2, "exceeds the double's 53"),
+    "expression_base": (lambda a: (a + 0.5) ** 3, 4, 0, "no proven grid"),
+    "negative": (lambda a: a ** -3, 4, 0, "negative power"),
+}
+
+
+@pytest.mark.parametrize("case", list(POWERS))
+def test_encoder_rejects_what_the_kernel_does_not_run(case):
+    """x ** n is encoded where every order of products is exact (then it
+    equals numpy's pow bit for bit) and refused, with its reason,
+    elsewhere."""
+    build, alpha_a, beta_a, reason = POWERS[case]
+    pipe, types = _power_pipeline(build, dict(builder=PipelineBuilder,
+                                              type=FixedPointType),
+                                  alpha_a, beta_a)
     lp = pl_.lower(pipe, types)
     isl = pl_.partition_islands(lp, (8, 8)).islands[0]
-    with pytest.raises(pl_.LoweringError, match=r"x \*\* 3"):
-        K.encode_program(island_program(lp, isl))
+    if reason is not None:
+        with pytest.raises(pl_.LoweringError, match=r"x \*\* -?3.*" + reason):
+            K.encode_program(island_program(lp, isl))
+        return
+    enc = K.encode_program(island_program(lp, isl))
+    assert K.OP_MUL in {c[0] for c in enc.prog.tolist()}
+    rng = np.random.default_rng(len(case))
+    q = rng.integers(types["a"].int_min, types["a"].int_max + 1, (8, 8))
+    img = q * 2.0 ** -beta_a
+    x = pb.ingest_input(torch.from_numpy(img), lp.stages["a"])
+    got, = K.fused_pipeline_reference(enc, isl.schedule.grid)(x)
+    rpipe, rtypes = _power_pipeline(build, dict(builder=RefBuilder,
+                                                type=RefType),
+                                    alpha_a, beta_a)
+    want = _run_concrete(rpipe, img, {}, rtypes, xp=np)["c"]
+    np.testing.assert_array_equal(pb.dequant(lp.stages["c"], got).numpy(),
+                                  want)
+    if case != "cube":
+        return
     # a narrow-mode f32 expression stage is encoded, flagged, and its
     # plain version equals the reference's oracle
     p = PipelineBuilder("sq")

@@ -125,7 +125,20 @@ Phases (any failure raises, and the exit code is not 0):
    CPU per image (ranges joined, rail counts summed), headroom a stage,
    JSONL and Chrome trace in `chiprun_out/`, `obs.report`'s stage table;
    the phase's seconds;
-9. print the seconds phases 1-8 took, a `{"kernels": [...]}` line, the
+9. sharded and f32: print the cards present and each benchmark's band
+   grid at 1080 and 1088 rows with the shard counts that divide it; for
+   each of the six at 4x1080x1920 (3 and 5 shards) and 4x1088x1920 (2
+   and 4), launch the band kernel's band ranges back to back on one
+   card, hold them joined `torch.equal` to one whole launch (usm's middle
+   range also to its plain version), and print their summed ms with the
+   L2 flushed beside the whole launch's; serve one USM batch of 4 at
+   1080x1920 through `PipelineServer(backend="sharded")` over every card
+   present, launches counted from 0, equal to ``backend="cuda"``; where
+   more than one card is present, the sharded executor over all of them
+   equal to one card's; the f32 walk (``backend="f32"``) on hcd at
+   1080x1920 on the card equal to the host CPU's; the phase's seconds
+   (held under 30 s);
+10. print the seconds phases 1-9 took, a `{"kernels": [...]}` line, the
    card's name and power limit, and, last, `{"ok": true, "device":
    {...}}`.
 
@@ -2043,6 +2056,155 @@ def workflows_on_the_card(dev, card) -> dict:
     return out
 
 
+# phase 9: the shard counts timed at each height (1080 rows are 135 bands
+# of 8, 3^3 * 5; 1088 rows are 136, 2^3 * 17)
+SHARD_CASES = ((1080, (3, 5)), (1088, (2, 4)))
+SHARDED_PHASE_LIMIT_S = 30.0
+
+
+def band_ranges_on_one_card(dev, card, params, flush) -> dict:
+    """Phase 9 (a): per benchmark and height, the band-range launches of
+    each shard count back to back on one card, joined == one whole
+    launch; their summed time with the L2 flushed beside the whole
+    launch's."""
+    import torch
+
+    from repro_torch.kernels.stencil import kernel as K
+    from repro_torch.pipelines import ALL
+    from repro_torch.pipelines.types import load_types
+    out = {}
+    for k, name in enumerate(ALL):
+        for rows, counts in SHARD_CASES:
+            shape = (4, rows, FRAME[1])
+            lp, isls = islands(ALL[name](), load_types(name),
+                               params.get(name, {}), shape)
+            (isl, enc), = isls
+            grid = isl.schedule.grid
+            bufs = ingest(lp, inputs(name, shape, 300 + 2 * k), dev)
+            ins = [bufs[n] for n in isl.inputs]
+            whole = K.fused_pipeline(enc, grid, 4)
+            want = whole(*ins)
+            whole_ms = cold_ms(lambda: whole(*ins), 5, flush)
+            row = {"grid": grid, "whole_ms": whole_ms}
+            for S in counts:
+                n_b = grid // S
+                shards = [K.fused_pipeline(enc, grid, 4, bands=(d * n_b, n_b))
+                          for d in range(S)]
+                parts = [f(*ins) for f in shards]
+                for o, w in enumerate(want):
+                    joined = torch.cat([p[o] for p in parts], dim=1)
+                    if not torch.equal(joined, w):
+                        raise AssertionError(
+                            f"{name} {rows} rows, {S} ranges joined != one "
+                            f"whole launch ({isl.outputs[o]})")
+                if name == "usm" and rows == 1080:
+                    d = S // 2
+                    same(f"fused_band usm range {d} of {S}", parts[d],
+                         K.fused_pipeline_reference(
+                             enc, grid, 4, bands=(d * n_b, n_b))(*ins))
+                row[f"S{S}_ms"] = cold_ms(
+                    lambda: [f(*ins) for f in shards], 5, flush)
+            out[f"{name}_{rows}"] = row
+            print(f"fused_band {name} 4x{rows}x{FRAME[1]} band ranges "
+                  f"({card}): grid {grid}; whole launch {whole_ms:.4f} ms, "
+                  + ", ".join(f"{S} ranges back to back {row[f'S{S}_ms']:.4f}"
+                              f" ms" for S in counts)
+                  + " (L2 flushed before each); joined == whole", flush=True)
+    return out
+
+
+def sharded_and_f32(dev, card, params) -> dict:
+    """Phase 9: the band grids and their dividing shard counts, the band
+    ranges on one card, one USM batch served through the sharded
+    executor over every card present (launches counted from 0), the
+    executor over all cards against one where there are several, and
+    the f32 walk on the card against the host CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dsl.exec import run_fixed
+    from repro_torch.kernels.stencil import kernel as K
+    from repro_torch.launch import make_band_mesh
+    from repro_torch.lowering import (compile_backend, lower,
+                                      partition_islands)
+    from repro_torch.pipelines import ALL, hcd, usm
+    from repro_torch.pipelines.types import load_types
+    from repro_torch.serve import PipelineServer, serve_offline
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    print(f"sharded phase ({card}): {n_cards} card(s) present", flush=True)
+    for name in ALL:
+        lp = lower(ALL[name](), load_types(name), params=params.get(name, {}))
+        for rows, _ in SHARD_CASES:
+            grids = [i.schedule.grid for i in
+                     partition_islands(lp, (rows, FRAME[1])).islands]
+            print(f"  {name} at {rows}x{FRAME[1]}: island grids {grids}; "
+                  f"shard counts 2-8 that divide every grid: "
+                  f"{[s for s in range(2, 9) if all(g % s == 0 for g in grids)]}",
+                  flush=True)
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    ranges = band_ranges_on_one_card(dev, card, params, flush)
+    del flush
+
+    # one served USM batch over every card present, counts from 0
+    imgs = [frames(FRAME, 400 + i) for i in range(4)]
+    with PipelineServer(usm.build(), load_types("usm"), params["usm"],
+                        backend="sharded", batch_size=4) as srv:
+        K.LAUNCHES["fused_band"] = 0
+        served = serve_offline(srv, imgs)
+        launches = K.LAUNCHES["fused_band"]
+    assert launches > 0, "the sharded server never launched the kernel"
+    want = run_fixed(usm.build(), np.stack(imgs), load_types("usm"),
+                     params["usm"], backend="cuda")["masked"].cpu()
+    for j, r in enumerate(served):
+        if not torch.equal(r["masked"], want[j]):
+            raise AssertionError(f"sharded server frame {j} != cuda")
+    print(f"served 4 usm {FRAME[0]}x{FRAME[1]} frames through "
+          f"PipelineServer(backend='sharded') over {n_cards} card(s) "
+          f"({card}): {launches} band-kernel launch(es), all equal to "
+          f"backend='cuda'", flush=True)
+
+    if n_cards > 1:
+        lp = lower(hcd.build(), load_types("hcd"))
+        img = frames((4, 1088, FRAME[1]), 410)
+        one = compile_backend(lp, "sharded", mesh=make_band_mesh(1))(img)
+        every = compile_backend(lp, "sharded",
+                                mesh=make_band_mesh(n_cards))(img)
+        for k_ in one:
+            if not torch.equal(one[k_], every[k_]):
+                raise AssertionError(f"hcd over {n_cards} cards != one card")
+        print(f"sharded executor over {n_cards} cards == one card (hcd "
+              f"4x1088x{FRAME[1]})", flush=True)
+    else:
+        print("sharded executor over several cards: only one card was "
+              "present", flush=True)
+
+    # the f32 walk on hcd at full size: the card against the host CPU
+    img = frames(FRAME, 420)
+    t0 = time.perf_counter()
+    on_card = run_fixed(hcd.build(), img, load_types("hcd"), backend="f32")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = run_fixed(hcd.build(), img, load_types("hcd"), backend="f32",
+                       device="cpu")
+    cpu_s = time.perf_counter() - t0
+    for k_, v in on_cpu.items():
+        g = on_card[k_].cpu()
+        if not (torch.equal(torch.nan_to_num(g), torch.nan_to_num(v))
+                and torch.equal(torch.signbit(g), torch.signbit(v))):
+            raise AssertionError(f"f32 walk hcd stage {k_}: card != CPU")
+    print(f"f32 walk hcd {FRAME[0]}x{FRAME[1]}: card {card_s:.3f} s, host "
+          f"CPU {cpu_s:.3f} s, {len(on_cpu)} stages equal", flush=True)
+
+    phase_s = time.perf_counter() - t_phase
+    print(f"sharded phase ({card}): {phase_s:.2f} s", flush=True)
+    assert phase_s < SHARDED_PHASE_LIMIT_S, \
+        f"phase 9 took {phase_s:.1f} s, over {SHARDED_PHASE_LIMIT_S} s"
+    return {"cards": n_cards, "ranges": ranges, "served_launches": launches,
+            "f32_walk_s": {"card": card_s, "cpu": cpu_s}, "phase_s": phase_s}
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -2139,8 +2301,11 @@ def main() -> int:
     # -- 8. workflows on the card -------------------------------------------
     workflows = workflows_on_the_card(dev, card)
 
-    # -- 9. result lines ---------------------------------------------------
-    print(f"chip_smoke: phases 1-8 in {time.perf_counter() - t_script:.2f} s "
+    # -- 9. sharded and f32 --------------------------------------------------
+    sharded = sharded_and_f32(dev, card, params)
+
+    # -- 10. result lines --------------------------------------------------
+    print(f"chip_smoke: phases 1-9 in {time.perf_counter() - t_script:.2f} s "
           f"({card})", flush=True)
     usm_t = band["usm"]
     print(json.dumps({"kernels": [{
@@ -2155,7 +2320,7 @@ def main() -> int:
                       for n, t in band.items()},
         "serving": {"usm": served, "of": flow},
         "analysis": analysis, "design_search": design_search,
-        "smt": smt, "workflows": workflows}]
+        "smt": smt, "workflows": workflows, "sharded": sharded}]
         + library_rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import xla_f32
+
 
 @dataclasses.dataclass(frozen=True)
 class FixedPointType:
@@ -133,6 +135,21 @@ def fix_round(x: torch.Tensor, t: FixedPointType) -> torch.Tensor:
     q = torch.round(x * step)
     q = torch.clamp(q, float(t.int_min), float(t.int_max))
     return q / step
+
+
+def fix_round_f32(x: torch.Tensor, t: FixedPointType) -> torch.Tensor:
+    """`fix_round` of an f32 tensor under XLA's f32 rules
+    (`core.xla_f32`), as the reference's `fix_round` runs on its f32
+    walk: the step and the clip bounds are f32 (``float(t.int_max)``
+    rounds above 2^24), the product and the quotient are flushed, and
+    the clip is XLA's max then min."""
+    dev = x.device
+    step = xla_f32.const(2.0 ** t.beta, dev).t
+    q = torch.round(xla_f32.ftz(xla_f32.ftz(x) * step))
+    q = xla_f32.minimum(
+        xla_f32.maximum(q, xla_f32.const(float(t.int_min), dev).t),
+        xla_f32.const(float(t.int_max), dev).t)
+    return xla_f32.ftz(q / step)
 
 
 def saturating_add(qa: torch.Tensor, qb: torch.Tensor,

@@ -23,9 +23,12 @@ Scoring backends (`Evaluator(backend=...)`):
     version, which is ``"torch"``;
   * ``"torch"``  — the kernel's plain PyTorch version;
   * ``"interp"`` — the per-stage f64 walk, the oracle (the reference's
-    ``"numpy"``).
+    ``"numpy"``);
+  * ``"sharded"`` — the band kernel with each island's bands split over
+    every device of `device`'s kind (`lowering.sharded`, the reference's
+    ``"sharded"``).
 
-All three give the same output bits, so the same scores.
+All four give the same output bits, so the same scores.
 
 Two memo layers keep the closed loop fast:
 
@@ -67,7 +70,7 @@ DSE_STATS = obs.CounterGroup("dse", evaluated=0, cached=0, rejected=0,
 # than this, while any real lowering bug drifts by whole decibels.
 ORACLE_TIE_TOL_DB = 1e-3
 
-SCORING_BACKENDS = ("cuda", "torch", "interp")
+SCORING_BACKENDS = ("cuda", "torch", "interp", "sharded")
 
 
 def output_stages(pipeline: Pipeline) -> List[str]:
@@ -110,8 +113,9 @@ class Evaluator:
 
     `backend` is the `run_fixed` backend the search loop scores with:
     ``"cuda"`` (default: the band kernel, one launch per island for all
-    images), ``"torch"`` (its plain version) or ``"interp"`` (the
-    per-stage oracle).  `device` is where the images, the float
+    images), ``"torch"`` (its plain version), ``"interp"`` (the
+    per-stage oracle) or ``"sharded"`` (one launch per island and
+    device).  `device` is where the images, the float
     reference and the reductions live (``None`` means the card; it
     raises without one).  `verify` always re-scores through the kernel
     path, so frontier points are kernel-scored either way.

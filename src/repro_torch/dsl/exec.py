@@ -5,7 +5,7 @@ abstract executor and the locked-LRU executor memo.
 
   * `run_float`    — the f64 float design (the paper's `typ = float`);
   * `run_fixed`    — bit-accurate (alpha, beta) fixed point with
-                     saturation, through one of four backends:
+                     saturation, through one of six backends:
 
     - ``"cuda"``    the band kernel, `kernels/stencil/csrc/fused_band.cu`,
       one launch per rate island (on a CPU device the kernel wrapper
@@ -18,6 +18,13 @@ abstract executor and the locked-LRU executor memo.
     - ``"interp"``  the per-stage f64 walk (`lowering.backends.
       compile_interp` over `_run_concrete`), the port of the reference's
       numpy oracle, returning every stage;
+    - ``"sharded"`` the band kernel with each rate island's bands split
+      over a device mesh (`lowering.sharded`, default: every card
+      present), returning the pipeline's outputs;
+    - ``"f32"``     the per-stage walk in f32 tensors under XLA's f32
+      rules (`_run_f32`), the port of the reference's legacy
+      ``backend="jax"``, returning every stage as f32 tensors; it is
+      not bit-identical to the oracle, and not meant to be;
 
   * `run_abstract` — object arrays of Interval / AffineForm per pixel,
                      on the host (the paper's `typ = Easyval /
@@ -27,10 +34,11 @@ abstract executor and the locked-LRU executor memo.
   * `make_profile_runner` — ``(image, params) -> float env`` on a
     device, the profile pass's default runner.
 
-Every backend is bit-identical to the reference's numpy oracle
-`repro.dsl.exec.run_fixed(backend="numpy")` and returns f64 tensors on
-the device.  A leading batch dimension, ``(B, H, W)``, is accepted
-everywhere.
+Every backend but ``"f32"`` is bit-identical to the reference's numpy
+oracle `repro.dsl.exec.run_fixed(backend="numpy")` and returns f64
+tensors on the device; ``"f32"`` is bit-identical to the reference's
+``backend="jax"``.  A leading batch dimension, ``(B, H, W)``, is
+accepted everywhere.
 """
 from __future__ import annotations
 
@@ -42,7 +50,9 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.core import xla_f32
 from repro_torch.core.absval import Domain, get_domain
+from repro_torch.core.fixedpoint import fix_round_f32
 from repro_torch.core.graph import (BinOp, Call, Cmp, Const, Expr, ParamRef,
                                     Pipeline, Pow, Ref, Select,
                                     pipeline_content_hash)
@@ -51,7 +61,10 @@ from repro_torch.core.range_analysis import static_cmp
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.lowering import backends as B
 
-BACKENDS = ("cuda", "torch", "lowered", "interp")
+BACKENDS = ("cuda", "torch", "lowered", "interp", "sharded", "f32")
+# the backends `run_fixed` compiles an executor for (the f32 walk runs
+# stage by stage, as the reference's does)
+COMPILED = BACKENDS[:-1]
 
 # Compiled executors, keyed on content (pipeline, types, params,
 # backend, column, datapath, device) so mutated pipelines or type maps
@@ -110,11 +123,11 @@ def lowered_executor(pipeline: Pipeline, types, params: Dict[str, float],
                      outputs: Optional[Sequence[str]] = None) -> Callable:
     """The memoized compiled executor for this content key."""
     from repro_torch.lowering.ir import lower
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; expected one of "
-                         f"{BACKENDS}")
+    if backend not in COMPILED:
+        raise ValueError(f"unknown backend {backend!r} for a compiled "
+                         f"executor; expected one of {COMPILED}")
     dev = resolve_device(device)
-    banded = backend in ("cuda", "torch")
+    banded = backend in ("cuda", "torch", "sharded")
     outputs = list(outputs) if outputs and banded else None
     key = executor_cache_key(pipeline, types, params, backend, column,
                              datapath, dev, outputs)
@@ -158,10 +171,18 @@ def run_fixed(pipeline: Pipeline, image, types,
     input stage; (H, W) or (B, H, W); f64 pixel values, or tensors
     already in the input stage's container (pre-quantized, used as they
     are).  Returns ``{stage: f64 tensor}`` on `device` (default
-    ``"cuda"``; it raises without a card): for ``"cuda"``/``"torch"`` the
-    pipeline's outputs, or the stages named in `outputs` (each stored
-    back from its rate island); every stage for ``"lowered"`` and
-    ``"interp"``."""
+    ``"cuda"``; it raises without a card): for ``"cuda"``/``"torch"``/
+    ``"sharded"`` the pipeline's outputs, or the stages named in
+    `outputs` (each stored back from its rate island); every stage for
+    ``"lowered"`` and ``"interp"``; every stage in f32 for ``"f32"``
+    (`datapath` and `outputs` do not apply to it)."""
+    if backend == "f32":
+        phase_types = None
+        if hasattr(types, "phase_types"):      # DesignTypes / BitwidthPlan
+            phase_types = types.phase_types(column) or None
+            types = types.types(column)
+        return _per_image(pipeline, image, lambda im: _run_f32(
+            pipeline, im, dict(params or {}), types, phase_types, device))
     run = lowered_executor(pipeline, types, dict(params or {}), backend,
                            device, column, datapath, outputs)
     return run(image)
@@ -251,11 +272,77 @@ def _run_concrete(pipeline: Pipeline, image, params: Dict[str, float],
     return env
 
 
-def run_float(pipeline: Pipeline, image,
-              params: Dict[str, float] | None = None,
-              device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """The float design in f64: every stage unsnapped, ``{stage: f64
-    tensor}`` on `device`.  A (B, H, W) batch runs image by image."""
+def _run_f32(pipeline: Pipeline, image, params: Dict[str, float],
+             types=None, phase_types=None,
+             device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Every stage of one (H, W) image, stage by stage in f32 under XLA's
+    f32 rules (`core.xla_f32`): the port of `repro.dsl.exec.
+    _run_concrete` on its jnp backend, the reference's legacy
+    ``backend="jax"``.  The input is rounded to f32 as numpy rounds it
+    (a subnormal kept, then read as zero by the first op); with
+    `types`, each stage is snapped by `fix_round_f32` (each residue of
+    `phase_types` on its own).  Returns f32 tensors on `device`."""
+    dev = resolve_device(device)
+    xp = xla_f32.F32XP(dev)
+    env: Dict[str, torch.Tensor] = {}
+    clean: Dict[str, bool] = {}       # holds no subnormal (see F32)
+    input_names = pipeline.input_stages()
+    if isinstance(image, dict):
+        inputs = image
+    elif isinstance(image, (tuple, list)):
+        inputs = dict(zip(input_names, image))
+    else:
+        inputs = {input_names[0]: image}
+    in_shape = None
+    for name in pipeline.topo_order():
+        st = pipeline.stages[name]
+        with obs.span("exec.stage", stage=name, input=st.is_input):
+            if st.is_input:
+                x = inputs[name]
+                x = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+                    np.asarray(x))
+                out, ok = x.to(dev, torch.float32), False
+                in_shape = in_shape or tuple(out.shape)
+            else:
+                B.check_inputs_meet(name, st, {i: tuple(env[i].shape)
+                                               for i in st.inputs}, in_shape)
+                H, W = env[st.inputs[0]].shape
+                H, W = H * st.upsample[0], W * st.upsample[1]
+                hy, hx = st.halo_yx()
+                padded = {i: B.upsample_pad(env[i], st.upsample, (hy, hx))
+                          for i in st.inputs}
+                v = xp.val(B.eval_expr(
+                    st.expr, lambda s, dy, dx: xla_f32.F32(
+                        padded[s][hy + dy:hy + dy + H, hx + dx:hx + dx + W],
+                        clean[s]), params, xp, xp.where))
+                sy, sx = st.stride
+                out = v.t.to(torch.float32).expand(H, W)[::sy, ::sx]
+                ok = v.clean
+            if types is not None:
+                t = types.get(name)
+                raw = out
+                if t is not None:
+                    out, ok = fix_round_f32(raw, t), True
+                if phase_types is not None and name in phase_types:
+                    (my, mx), tmap = phase_types[name]
+                    out = out.clone()
+                    for (ry, rx), t_ph in sorted(tmap.items()):
+                        out[ry::my, rx::mx] = fix_round_f32(
+                            raw[ry::my, rx::mx], t_ph)
+        env[name], clean[name] = out.contiguous(), ok
+        if obs.runtime_ranges_enabled():
+            obs.runtime.record_stage(
+                name, env[name],
+                types.get(name) if types is not None else None,
+                (phase_types or {}).get(name), backend="f32")
+    return env
+
+
+def _per_image(pipeline: Pipeline, image, one: Callable
+               ) -> Dict[str, torch.Tensor]:
+    """`one(images)` of a single image, or of each image of a (B, H, W)
+    batch, stacked: the per-image loop the batched executors are held
+    to.  `images` is the list of input frames in input-stage order."""
     names = pipeline.input_stages()
     if isinstance(image, dict):
         arrs = [image[n] for n in names]
@@ -264,11 +351,26 @@ def run_float(pipeline: Pipeline, image,
     else:
         arrs = [image]
     if all(a.ndim == 3 for a in arrs):
-        per = [_run_concrete(pipeline, [a[b] for a in arrs], params or {},
-                             device=device)
-               for b in range(len(arrs[0]))]
+        per = [one([a[b] for a in arrs]) for b in range(len(arrs[0]))]
         return {k: torch.stack([p[k] for p in per]) for k in per[0]}
-    return _run_concrete(pipeline, arrs, params or {}, device=device)
+    return one(arrs)
+
+
+def run_float(pipeline: Pipeline, image,
+              params: Dict[str, float] | None = None,
+              device: DeviceLike = None,
+              backend: str = "interp") -> Dict[str, torch.Tensor]:
+    """The float design: every stage unsnapped, ``{stage: tensor}`` on
+    `device`; in f64 (``backend="interp"``, the reference's ``"numpy"``)
+    or in f32 under XLA's rules (``"f32"``, the reference's ``"jax"``).
+    A (B, H, W) batch runs image by image."""
+    if backend not in ("interp", "f32"):
+        raise ValueError(f"run_float: unknown backend {backend!r}; "
+                         f"expected 'interp' or 'f32'")
+    walk = _run_f32 if backend == "f32" else _run_concrete
+    return _per_image(pipeline, image,
+                      lambda im: walk(pipeline, im, params or {},
+                                      device=device))
 
 
 # ---------------------------------------------------------------------------

@@ -38,10 +38,11 @@ _P, _I, _I64 = _c.c_void_p, _c.c_int, _c.c_int64
 # each library's C entry points and their argument types
 SIGNATURES = {
     # meta, layout, ins, n_in, outs, n_out, ws, ws_per_block, batch,
-    # nbands, blocks, threads, stream / smem bytes, threads, f32, out[4]
+    # band0, nbands, blocks, threads, stream / smem bytes, threads, f32,
+    # out[4]
     "fused_band": {"fused_band_launch": [
         _P, _c.POINTER(_I), _c.POINTER(_P), _I, _c.POINTER(_P), _I, _P,
-        _I64, _I, _I, _I, _I, _P],
+        _I64, _I, _I, _I, _I, _I, _P],
         "fused_band_occupancy": [_I, _I, _I, _c.POINTER(_I)]},
     # x, out, H, W, taps (int32 n x 3), n_taps, hy, hx, shift, qmin,
     # qmax, stream

@@ -21,6 +21,13 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+# FLT_MIN: the least normal f32 (and bf16) magnitude, 2^-126;
+# flush_subnormal: values below it made zeros of their sign, as XLA's
+# compiled code on the CPU reads a subnormal f32 operand and writes a
+# subnormal f32 result
+from repro_torch.core.xla_f32 import FLT_MIN
+from repro_torch.core.xla_f32 import ftz as flush_subnormal
+
 LAUNCHES: Dict[str, int] = {"block_quantize": 0, "block_dequantize": 0}
 _LAUNCH_LOCK = threading.Lock()
 QMAX = 127
@@ -28,19 +35,6 @@ QMAX = 127
 
 # the dtypes `block_quantize` takes, by the code its CUDA entry point takes
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-
-
-# the least normal f32 (and bf16) magnitude, 2^-126
-FLT_MIN = float(torch.finfo(torch.float32).tiny)
-
-
-def flush_subnormal(t: torch.Tensor) -> torch.Tensor:
-    """t with every value below `FLT_MIN` in magnitude made a zero of its
-    sign, as XLA's compiled code on the CPU reads a subnormal f32 operand
-    and writes a subnormal f32 result.  Per value: no floating-point
-    mode is set.  f16 holds no value that is subnormal in f32, so it
-    passes unchanged."""
-    return torch.where(t.abs() < FLT_MIN, t * 0.0, t)
 
 
 def inv_qmax(qmax: int = QMAX) -> float:

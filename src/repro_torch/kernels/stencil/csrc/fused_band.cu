@@ -162,7 +162,8 @@ struct Params {
   char* ws;                   // blocks x ws_per_block bytes (global tiles)
   int64_t ws_per_block;
   int batch;
-  int nbands;
+  int band0;                  // the first band step of this launch
+  int nbands;                 // band steps [band0, band0 + nbands)
   const void* in[MAX_IO];
   void* out[MAX_IO];
 };
@@ -280,7 +281,7 @@ struct Block {
     int64_t band = q / ntiles;
     Item it;
     it.j = (int)(q - band * ntiles);
-    it.i = (int)(band % nbands);
+    it.i = P.band0 + (int)(band % nbands);
     it.img = (int)(band / nbands);
     return it;
   }
@@ -636,8 +637,12 @@ struct Block {
 
   // every pixel of stage s's tile of item `it`: into its tile, and the
   // output window [-lo, -lo+step) x [-clo, -clo+cstep) into its output.
-  // A thread takes a quad of 4 neighbouring columns of one tile row at a
-  // time; a block's threads take consecutive quads.
+  // The output holds the launch's rows only, image rows [band0*step,
+  // min((band0+nbands)*step, H)): its base is offset back by band0*step
+  // rows once, so the store below addresses image row grow as the
+  // whole-grid launch does, and the clip keeps the global H.  A thread
+  // takes a quad of 4 neighbouring columns of one tile row at a time; a
+  // block's threads take consecutive quads.
   template <bool F32>
   __device__ void run_stage(int s, const Item& it) const {
     const int64_t* d = stage(s);
@@ -648,11 +653,14 @@ struct Block {
     int code = (int)d[F_CODE], es = (int)d[F_ESIZE];
     int pitch = (int)d[F_PITCH];
     int row0 = it.i * step + lo, col0 = it.j * cstep + clo;
+    int orow0 = P.band0 * step;                   // the output's first row
+    int oH = min((P.band0 + nbands) * step, H) - orow0;
     bool lin = d[F_KIND] == KIND_INTLINEAR, f32 = F32 && d[F_F32] != 0;
     char* tile = sbase[s];
     char* out = d[F_OUT_SLOT] < 0
                     ? nullptr
-                    : (char*)P.out[d[F_OUT_SLOT]] + (int64_t)it.img * H * W * es;
+                    : (char*)P.out[d[F_OUT_SLOT]] +
+                          ((int64_t)it.img * oH - orow0) * W * es;
     // output columns of this tile: [c_lo, c_hi) of the tile
     int c_lo = max(-clo, 0), c_hi = min(-clo + cstep, W - col0);
     int nq = (CW + PX - 1) / PX;                  // quads a row
@@ -745,13 +753,17 @@ extern "C" int fused_band_occupancy(int smem_bytes, int threads, int f32,
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  `ins`
 // and `outs` are host arrays of device pointers, `layout` the NL
 // scalars (L_F32 picks the instantiation); the kernel allocates nothing
-// and does not synchronize.
+// and does not synchronize.  It runs band steps [band0, band0 + nbands)
+// of every image: inputs are the whole images, outputs hold those bands'
+// rows only.
 extern "C" int fused_band_launch(const int64_t* meta, const int* layout,
                                  const void* const* ins, int n_in,
                                  void* const* outs, int n_out, char* ws,
-                                 int64_t ws_per_block, int batch, int nbands,
-                                 int blocks, int threads, void* stream) {
-  if (n_in > MAX_IO || n_out > MAX_IO || blocks < 1 || threads != THREADS)
+                                 int64_t ws_per_block, int batch, int band0,
+                                 int nbands, int blocks, int threads,
+                                 void* stream) {
+  if (n_in > MAX_IO || n_out > MAX_IO || blocks < 1 || threads != THREADS ||
+      band0 < 0 || nbands < 1)
     return (int)cudaErrorInvalidValue;
   Params P;
   P.meta = meta;
@@ -759,6 +771,7 @@ extern "C" int fused_band_launch(const int64_t* meta, const int* layout,
   P.ws = ws;
   P.ws_per_block = ws_per_block;
   P.batch = batch;
+  P.band0 = band0;
   P.nbands = nbands;
   for (int k = 0; k < MAX_IO; ++k) {
     P.in[k] = k < n_in ? ins[k] : nullptr;

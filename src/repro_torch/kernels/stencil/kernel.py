@@ -843,14 +843,36 @@ def band_outputs_reference(enc: EncodedProgram,
     return out
 
 
-def _alloc_outputs(enc: EncodedProgram, nb: int, device) -> List[torch.Tensor]:
-    return [torch.empty((nb, d["H"], d["W"]), dtype=CONTAINERS[d["code"]],
-                        device=device) for _, d in enc.slots("out_slot")]
+Bands = Tuple[int, int]          # (first band step, number of band steps)
+
+
+def band_range(grid: int, bands: Optional[Bands]) -> Bands:
+    """`bands` checked against the island's `grid`; ``None`` is the
+    whole grid, ``(0, grid)``."""
+    if bands is None:
+        return 0, grid
+    b0, k = (int(v) for v in bands)
+    if b0 < 0 or k < 1 or b0 + k > grid:
+        raise ValueError(f"fused_pipeline: bands {tuple(bands)} do not lie "
+                         f"in the grid of {grid} band steps")
+    return b0, k
+
+
+def _alloc_outputs(enc: EncodedProgram, nb: int, device,
+                   bands: Bands) -> List[torch.Tensor]:
+    """Each output stage's rows that band steps ``[b0, b0 + k)`` write:
+    image rows ``[b0 * step, min((b0 + k) * step, H))``."""
+    b0, k = bands
+    return [torch.empty((nb, min((b0 + k) * d["step"], d["H"])
+                         - b0 * d["step"], d["W"]),
+                        dtype=CONTAINERS[d["code"]], device=device)
+            for _, d in enc.slots("out_slot")]
 
 
 def fused_pipeline_reference(enc: EncodedProgram, grid: int,
                              batch: Optional[int] = None,
-                             col_tiles: bool = False) -> Callable:
+                             col_tiles: bool = False,
+                             bands: Optional[Bands] = None) -> Callable:
     """Plain PyTorch version of the band kernel, band by band.
 
     Returns ``f(*inputs) -> tuple(outputs)`` with the `fused_pipeline`
@@ -858,23 +880,26 @@ def fused_pipeline_reference(enc: EncodedProgram, grid: int,
     containers; outputs the island's output stages in theirs.  With
     `col_tiles` it walks the kernel's work items, (band, column tile),
     and stitches their outputs, masking the ragged last band and tile;
-    else whole-width bands."""
+    else whole-width bands.  `bands=(b0, k)` walks band steps ``[b0, b0
+    + k)`` only (a shard of the grid, `lowering.sharded`): the inputs
+    are still the whole images, the outputs hold those bands' rows."""
+    b0, k = band_range(grid, bands)
 
     def run(*arrays):
         xs = [a if batch is not None else a.unsqueeze(0) for a in arrays]
-        outs = _alloc_outputs(enc, xs[0].shape[0], xs[0].device)
-        for i in range(grid):
+        outs = _alloc_outputs(enc, xs[0].shape[0], xs[0].device, (b0, k))
+        for i in range(b0, b0 + k):
             for j in (range(enc.ntiles) if col_tiles else (None,)):
                 band = band_outputs_reference(enc, xs, i, j)
                 for o, (s, d) in zip(outs, enc.slots("out_slot")):
-                    r0, c0 = i * d["step"], 0 if j is None else \
+                    r0, c0 = (i - b0) * d["step"], 0 if j is None else \
                         j * d["cstep"]
-                    k = min(d["step"], d["H"] - r0)     # ragged last band
+                    kr = min(d["step"], o.shape[1] - r0)  # ragged last band
                     kc = d["W"] - c0 if j is None else \
                         min(d["cstep"], d["W"] - c0)    # ragged last tile
-                    if k > 0 and kc > 0:
-                        o[:, r0:r0 + k, c0:c0 + kc] = \
-                            band[enc.names[s]][:, :k, :kc]
+                    if kr > 0 and kc > 0:
+                        o[:, r0:r0 + kr, c0:c0 + kc] = \
+                            band[enc.names[s]][:, :kr, :kc]
         return tuple(o if batch is not None else o[0] for o in outs)
 
     return run
@@ -885,21 +910,26 @@ def fused_pipeline_reference(enc: EncodedProgram, grid: int,
 # ---------------------------------------------------------------------------
 
 def fused_pipeline(enc: EncodedProgram, grid: int,
-                   batch: Optional[int] = None) -> Callable:
+                   batch: Optional[int] = None,
+                   bands: Optional[Bands] = None) -> Callable:
     """Band-kernel wrapper: ``f(*inputs) -> tuple(outputs)``.
 
     CPU tensors run `fused_pipeline_reference`.  CUDA tensors launch
     `csrc/fused_band.cu` on the current stream or raise; there is no
     fallback.  The launch allocates the outputs (and the global tiles,
-    where the encoder placed any) here, and does not synchronize."""
+    where the encoder placed any) here, and does not synchronize.
+    `bands=(b0, k)` runs band steps ``[b0, b0 + k)`` of the `grid`
+    (default: all of them) into outputs of those bands' rows."""
+    rng = band_range(grid, bands)
 
     def run(*arrays):
         dev = arrays[0].device
         if dev.type == "cpu":
-            return fused_pipeline_reference(enc, grid, batch)(*arrays)
+            return fused_pipeline_reference(enc, grid, batch,
+                                            bands=rng)(*arrays)
         if dev.type != "cuda":
             raise RuntimeError(f"fused_pipeline: unsupported device {dev}")
-        return _launch(enc, grid, batch, arrays)
+        return _launch(enc, rng, batch, arrays)
 
     return run
 
@@ -934,14 +964,14 @@ def occupancy(enc: EncodedProgram, device) -> Dict[str, int]:
     return _OCCUPANCY[key]
 
 
-def launch_grid(enc: EncodedProgram, grid: int, nb: int, device) -> int:
-    """Blocks of the persistent grid: every SM full, at most one block a
-    work item."""
+def launch_grid(enc: EncodedProgram, nbands: int, nb: int, device) -> int:
+    """Blocks of the persistent grid over `nbands` band steps of `nb`
+    images: every SM full, at most one block a work item."""
     occ = occupancy(enc, device)
-    return min(nb * grid * enc.ntiles, occ["sms"] * occ["blocks_per_sm"])
+    return min(nb * nbands * enc.ntiles, occ["sms"] * occ["blocks_per_sm"])
 
 
-def _launch(enc: EncodedProgram, grid: int, batch: Optional[int],
+def _launch(enc: EncodedProgram, bands: Bands, batch: Optional[int],
             arrays: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     from repro_torch.kernels import _build
 
@@ -964,8 +994,9 @@ def _launch(enc: EncodedProgram, grid: int, batch: Optional[int],
                 f"fused_pipeline: input slot {d['in_slot']} must be a "
                 f"contiguous {CONTAINERS[d['code']]} tensor of shape {want} "
                 f"on {dev}; got {a.dtype} {tuple(a.shape)} on {a.device}")
-    outs = _alloc_outputs(enc, nb, dev)
-    blocks = launch_grid(enc, grid, nb, dev)
+    band0, nbands = bands
+    outs = _alloc_outputs(enc, nb, dev, bands)
+    blocks = launch_grid(enc, nbands, nb, dev)
     ws = torch.empty(blocks * enc.ws_per_block, dtype=torch.uint8,
                      device=dev)
     layout = (ctypes.c_int * len(LAYOUT))(*[enc.layout[k] for k in LAYOUT])
@@ -976,8 +1007,8 @@ def _launch(enc: EncodedProgram, grid: int, batch: Optional[int],
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fused_band_launch(
             enc.device_meta(dev).data_ptr(), layout, in_ptrs, len(arrays),
-            out_ptrs, len(outs), ws.data_ptr(), enc.ws_per_block, nb, grid,
-            blocks, THREADS, stream)
+            out_ptrs, len(outs), ws.data_ptr(), enc.ws_per_block, nb, band0,
+            nbands, blocks, THREADS, stream)
     if rc != 0:
         raise RuntimeError(f"fused_band launch failed: CUDA error {rc}")
     with _LAUNCH_LOCK:

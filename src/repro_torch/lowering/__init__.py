@@ -8,11 +8,13 @@ Port of `repro.lowering`:
 
 Backends: ``"cuda"`` (the band kernel, one launch per rate island),
 ``"torch"`` (its plain version), ``"lowered"`` (one whole-frame torch
-program) and ``"interp"`` (the per-stage f64 walk, the port's oracle).
+program), ``"interp"`` (the per-stage f64 walk, the port's oracle) and
+``"sharded"`` (the band kernel's bands split over a device mesh).
 
 `ir`, `schedule` and `islands` are the port's copies of the reference's
-JAX-free layers; `backends` holds the datapath rules in torch and
-`cuda_backend` the executor over the band kernel.
+JAX-free layers; `backends` holds the datapath rules in torch,
+`cuda_backend` the executor over the band kernel and `sharded` the
+executor over a mesh of devices.
 """
 from repro_torch.lowering.ir import (IntTap, LoweredPipeline, LoweredStage,
                                      LoweringError, PhaseSnap, Tap, lower,

@@ -259,18 +259,24 @@ def check_stage_shapes(lp: LoweredPipeline, in_shape: Tuple[int, int]
     shape before it computes anything."""
     shapes = stage_shapes(lp, tuple(in_shape))
     for name in lp.order:
-        st = lp.stages[name].stage
-        if len(st.inputs) < 2:
-            continue
-        uy, ux = st.upsample
-        up = {i: (shapes[i][0] * uy, shapes[i][1] * ux) for i in st.inputs}
-        first = st.inputs[0]
-        for other in st.inputs[1:]:
-            if up[other][0] < up[first][0] or up[other][1] < up[first][1]:
-                raise LoweringError(
-                    f"stage {name!r}: its inputs do not meet at input "
-                    f"shape {tuple(in_shape)}: {first!r} gives "
-                    f"{up[first]}, {other!r} gives {up[other]}")
+        check_inputs_meet(name, lp.stages[name].stage, shapes, in_shape)
+
+
+def check_inputs_meet(name: str, st, shapes: Dict[str, Tuple[int, int]],
+                      in_shape: Tuple[int, int]) -> None:
+    """`check_stage_shapes` for one stage `st`, its inputs' (H, W) in
+    `shapes` (a walk checks each stage as it reaches it)."""
+    if len(st.inputs) < 2:
+        return
+    uy, ux = st.upsample
+    up = {i: (shapes[i][0] * uy, shapes[i][1] * ux) for i in st.inputs}
+    first = st.inputs[0]
+    for other in st.inputs[1:]:
+        if up[other][0] < up[first][0] or up[other][1] < up[first][1]:
+            raise LoweringError(
+                f"stage {name!r}: its inputs do not meet at input "
+                f"shape {tuple(in_shape)}: {first!r} gives "
+                f"{up[first]}, {other!r} gives {up[other]}")
 
 
 def normalize_images(lp: LoweredPipeline, image):
@@ -601,16 +607,19 @@ def compile_lowered(lp: LoweredPipeline,
 # the compile front door
 # ---------------------------------------------------------------------------
 
-COMPILE_BACKENDS = ("cuda", "torch", "lowered", "interp")
+COMPILE_BACKENDS = ("cuda", "torch", "lowered", "interp", "sharded")
 
 
 def compile_backend(lp: LoweredPipeline, backend: str = "cuda",
                     outputs: Optional[Sequence[str]] = None,
-                    device: DeviceLike = None) -> Executor:
+                    device: DeviceLike = None, **options) -> Executor:
     """An executor of `lp` on `backend`: ``"cuda"`` (the band kernel,
     `lowering.cuda_backend`), ``"torch"`` (its plain version),
-    ``"lowered"`` (`compile_lowered`) or ``"interp"`` (`compile_interp`).
-    `outputs` defaults to the pipeline's outputs."""
+    ``"lowered"`` (`compile_lowered`), ``"interp"`` (`compile_interp`)
+    or ``"sharded"`` (the band kernel split over a device mesh,
+    `lowering.sharded`).  `outputs` defaults to the pipeline's outputs.
+    `options` go to the backend: ``tile_rows`` for the band-kernel
+    backends, and ``mesh`` for ``"sharded"``."""
     if backend not in COMPILE_BACKENDS:
         raise LoweringError(f"unknown lowering backend {backend!r}; "
                             f"expected one of {COMPILE_BACKENDS}")
@@ -622,9 +631,13 @@ def compile_backend(lp: LoweredPipeline, backend: str = "cuda",
         if backend in ("cuda", "torch"):
             from repro_torch.lowering.cuda_backend import compile_cuda
             return compile_cuda(lp, device=device, plain=backend == "torch",
-                                outputs=outputs)
+                                outputs=outputs, **options)
+        if backend == "sharded":
+            from repro_torch.lowering.sharded import compile_sharded
+            return compile_sharded(lp, outputs=outputs, device=device,
+                                   **options)
         compile_ = compile_lowered if backend == "lowered" else compile_interp
-        return compile_(lp, outputs=outputs, device=device)
+        return compile_(lp, outputs=outputs, device=device, **options)
 
 
 def compile_pipeline(pipeline, types, params: Optional[Dict[str, float]] = None,

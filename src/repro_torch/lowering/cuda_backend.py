@@ -79,11 +79,44 @@ def _written(lp: LoweredPipeline, isl: Island) -> List[str]:
     return [n for n in isl.outputs if not lp.stages[n].stage.is_input]
 
 
+def ingest_images(lp: LoweredPipeline, image, input_names: Sequence[str],
+                  dev: torch.device) -> Tuple[Dict[str, torch.Tensor],
+                                              Tuple[int, ...]]:
+    """`image` (run_fixed's conventions: array, tuple or dict; numpy or
+    torch; (H, W) or (B, H, W)) as the input stages' stored tiles on
+    `dev`, and the frames' common shape.  Container-dtype frames are
+    pre-quantized stored tiles (zero-copy); others quantize from f64 on
+    the device."""
+    imgs, names = B.normalize_images(lp, image)
+    img_of = dict(zip(names, imgs))
+    buffers: Dict[str, torch.Tensor] = {}
+    shape = None
+    for n in input_names:
+        x = img_of[n]
+        x = torch.from_numpy(np.asarray(x)) \
+            if not isinstance(x, torch.Tensor) else x
+        if x.ndim not in (2, 3):
+            raise LoweringError(f"images must be (H, W) or (B, H, W); "
+                                f"got {tuple(x.shape)}")
+        if shape is None:
+            shape = tuple(x.shape)
+        elif tuple(x.shape) != shape:
+            raise LoweringError(f"all pipeline inputs must share one "
+                                f"shape; got {shape} vs "
+                                f"{tuple(x.shape)}")
+        x = x.to(dev, non_blocking=True)
+        buffers[n] = B.ingest_input(x.contiguous(), lp.stages[n])
+    return buffers, shape
+
+
 def compile_cuda(lp: LoweredPipeline, device: DeviceLike = None,
                  plain: bool = False,
-                 outputs: Optional[Sequence[str]] = None) -> B.Executor:
+                 outputs: Optional[Sequence[str]] = None,
+                 tile_rows: Optional[int] = None) -> B.Executor:
     """Shape-specialized executor: the island plan and its encoded
     programs are built (and cached) per input shape on first call.
+    `tile_rows` forces the whole-DAG schedule at that tile height
+    (`islands.partition_islands`).
 
     The executor takes an image as run_fixed does (array, tuple or
     dict; numpy or torch; (H, W) or (B, H, W)) and returns
@@ -100,32 +133,13 @@ def compile_cuda(lp: LoweredPipeline, device: DeviceLike = None,
 
     def build(shape) -> List[Tuple[Island, EncodedProgram, Dict]]:
         B.check_stage_shapes(lp, shape[-2:])
-        plan = partition_islands(lp, tuple(shape[-2:]), outputs=outs)
+        plan = partition_islands(lp, tuple(shape[-2:]), outputs=outs,
+                                 tile_rows=tile_rows)
         return [(isl, encode_program(island_program(lp, isl)),
                  _island_attrs(lp, isl)) for isl in plan.islands]
 
     def run(image) -> Dict[str, torch.Tensor]:
-        imgs, names = B.normalize_images(lp, image)
-        img_of = dict(zip(names, imgs))
-        buffers: Dict[str, torch.Tensor] = {}
-        shape = None
-        for n in input_names:
-            x = img_of[n]
-            x = torch.from_numpy(np.asarray(x)) \
-                if not isinstance(x, torch.Tensor) else x
-            if x.ndim not in (2, 3):
-                raise LoweringError(f"images must be (H, W) or (B, H, W); "
-                                    f"got {tuple(x.shape)}")
-            if shape is None:
-                shape = tuple(x.shape)
-            elif tuple(x.shape) != shape:
-                raise LoweringError(f"all pipeline inputs must share one "
-                                    f"shape; got {shape} vs "
-                                    f"{tuple(x.shape)}")
-            # container-dtype frames are pre-quantized stored tiles
-            # (zero-copy); others quantize from f64 on the device
-            x = x.to(dev, non_blocking=True)
-            buffers[n] = B.ingest_input(x.contiguous(), lp.stages[n])
+        buffers, shape = ingest_images(lp, image, input_names, dev)
         batch = shape[0] if len(shape) == 3 else None
         with obs.span("exec.cuda", backend=backend,
                       pipeline=lp.pipeline.name, outputs=len(outs)) as sp:

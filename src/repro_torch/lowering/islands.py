@@ -112,12 +112,16 @@ def _ext_inputs(lp: LoweredPipeline, stages: Sequence[str]) -> List[str]:
 
 
 def partition_islands(lp: LoweredPipeline, in_shape: Tuple[int, int],
-                      outputs: Optional[Sequence[str]] = None) -> IslandPlan:
+                      outputs: Optional[Sequence[str]] = None,
+                      tile_rows: Optional[int] = None) -> IslandPlan:
     """Cut the lowered DAG into scheduled rate islands (always succeeds).
 
     `outputs` (default: the pipeline's outputs) are the stages stored
     back to device memory; any stage may be one, and only its ancestors
-    are scheduled."""
+    are scheduled.  `tile_rows`, when given, forces the whole-DAG
+    schedule at that tile height and raises its `LoweringError` if it
+    does not exist: an explicit tile request is a statement about the
+    whole program."""
     outs = list(outputs or lp.pipeline.outputs)
     order = needed_stages(lp, outs)
     shapes = stage_shapes(lp, in_shape)
@@ -136,11 +140,12 @@ def partition_islands(lp: LoweredPipeline, in_shape: Tuple[int, int],
                 if n in outs_set
                 or any(c not in inside for c in consumers[n])]
 
-    def try_build(stages: List[str]) -> Optional[Schedule]:
+    def try_build(stages: List[str],
+                  tile: Optional[int] = None) -> Optional[Schedule]:
         try:
             return build_island_schedule(
                 lp, shapes, stages, _ext_inputs(lp, stages),
-                boundary_outputs(stages))
+                boundary_outputs(stages), tile_rows=tile)
         except LoweringError:
             return None
 
@@ -148,11 +153,15 @@ def partition_islands(lp: LoweredPipeline, in_shape: Tuple[int, int],
         return Fraction(shapes[stages[0]][0], in_shape[0])
 
     # fast path: the whole DAG as one island (the historical case)
-    whole = try_build(compute)
+    whole = try_build(compute, tile=tile_rows)
     if whole is not None:
         isl = Island(0, compute, inputs, outs, rate_of(compute), whole,
                      single_tile=False)
         return IslandPlan([isl], order, inputs, outs)
+    if tile_rows is not None:
+        # surface the schedule's own diagnostic for the forced tile
+        build_island_schedule(lp, shapes, compute, inputs, outs,
+                              tile_rows=tile_rows)
 
     islands: List[Island] = []
 

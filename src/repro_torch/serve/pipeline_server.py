@@ -47,8 +47,8 @@ class PipelineServer:
     """Batched serving front end over one compiled executor.
 
     ``backend`` is a port `run_fixed` backend (``"cuda"``, ``"torch"``,
-    ``"lowered"`` or ``"interp"``); ``column`` and ``datapath`` are
-    `run_fixed`'s.  A pipeline with several inputs (optical flow) takes
+    ``"lowered"``, ``"interp"`` or ``"sharded"``, the last over every
+    card present); ``column`` and ``datapath`` are `run_fixed`'s.  A pipeline with several inputs (optical flow) takes
     each request as a tuple or a dict of frames.  ``batch_timeout_s``
     bounds how long a partial batch waits for more requests.  `stats`
     counts frames, batches and pad frames.  Usable as a context manager;

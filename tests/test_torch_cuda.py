@@ -948,3 +948,125 @@ def test_table12_search_on_the_card_equals_the_cpu(cuda):
     assert K.LAUNCHES["fused_band"] > before
     assert got == PT.design_frontier(cpu, plan)
     A.clear_memo()
+
+
+# ---------------------------------------------------------------------------
+# band ranges, the sharded executor and the f32 walk
+# ---------------------------------------------------------------------------
+
+# (rows, shard counts): 1080 rows are 135 bands of 8 (3^3 * 5), 1088 are
+# 136 (2^3 * 17)
+RANGES = [(1080, (3, 5)), (1088, (2, 4))]
+RANGE_CASES = [(n, h, s) for n in ALL for h, s in RANGES]
+
+
+@pytest.mark.parametrize("name,rows,shards", RANGE_CASES,
+                         ids=[f"{n}-{h}" for n, h, _ in RANGE_CASES])
+def test_band_ranges_equal_plain_version_and_whole_launch(cuda, name, rows,
+                                                          shards):
+    """`fused_pipeline(..., bands=(d*k, k))` == its plain version, and
+    the ranges joined along rows == one whole launch, on every island."""
+    shape = (2, rows, 96)
+    lp = lower(ALL[name](), load_types(name), params=PARAMS.get(name, {}))
+    img = _inputs(name, shape, 17)
+    imgs = img if isinstance(img, tuple) else (img,)
+    bufs = {n: B.ingest_input(torch.from_numpy(x).to(cuda), lp.stages[n])
+            for n, x in zip(lp.pipeline.input_stages(), imgs)}
+    for isl in partition_islands(lp, shape[1:]).islands:
+        enc = K.encode_program(island_program(lp, isl))
+        grid = isl.schedule.grid
+        ins = [bufs[n] for n in isl.inputs]
+        whole = K.fused_pipeline(enc, grid, 2)(*ins)
+        for S in shards:
+            assert grid % S == 0, (name, rows, S)
+            k = grid // S
+            parts = []
+            for d in range(S):
+                got = K.fused_pipeline(enc, grid, 2, bands=(d * k, k))(*ins)
+                want = K.fused_pipeline_reference(enc, grid, 2,
+                                                  bands=(d * k, k))(*ins)
+                for n, g, w in zip(isl.outputs, got, want):
+                    assert g.shape == w.shape and g.dtype == w.dtype
+                    assert torch.equal(g, w), (n, S, d)
+                parts.append(got)
+            for o, w in enumerate(whole):
+                assert torch.equal(torch.cat([p[o] for p in parts], dim=1),
+                                   w), (S, isl.outputs[o])
+        bufs.update(zip(isl.outputs, whole))
+
+
+SHARDED = [("usm", (2, 48, 48)), ("hcd", (48, 48)), ("dus_ext", (2, 48, 48)),
+           ("dus", (2, 47, 48)), ("of_pyramid", (2, 40, 40))]
+
+
+@pytest.mark.parametrize("name,shape", SHARDED,
+                         ids=[f"{n}-{'x'.join(map(str, s))}"
+                              for n, s in SHARDED])
+def test_run_fixed_sharded_on_the_card_equals_interp(cuda, name, shape):
+    import warnings
+    pipe, params = ALL[name](), PARAMS.get(name, {})
+    img = _inputs(name, shape, 19)
+    before = K.LAUNCHES["fused_band"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        got = run_fixed(pipe, img, load_types(name), params,
+                        backend="sharded", device=cuda)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fused_band"] > before
+    want = run_fixed(pipe, img, load_types(name), params, backend="interp",
+                     device=cuda)
+    assert sorted(got) == sorted(pipe.outputs)
+    for k in got:
+        assert got[k].device == torch.device("cuda", 0)
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_pipeline_server_sharded_returns_what_cuda_returns(cuda):
+    from repro_torch.serve import PipelineServer, serve_offline
+    pipe, params = ALL["usm"](), PARAMS["usm"]
+    imgs = [_frames((64, 80), 60 + i) for i in range(6)]
+    outs = {}
+    for backend in ("sharded", "cuda"):
+        with PipelineServer(pipe, load_types("usm"), params,
+                            backend=backend, batch_size=4,
+                            device=cuda) as srv:
+            outs[backend] = serve_offline(srv, imgs)
+    for a, b in zip(outs["sharded"], outs["cuda"]):
+        assert torch.equal(a["masked"], b["masked"])
+
+
+def test_sharded_over_every_card_equals_one_card(cuda):
+    from repro_torch.launch import make_band_mesh
+    from repro_torch.lowering import compile_backend
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("one card present: the split over cards needs two")
+    lp = lower(ALL["hcd"](), load_types("hcd"))
+    img = _frames((2, 8 * n * 3, 96), 23)
+    one = compile_backend(lp, "sharded", mesh=make_band_mesh(1))(img)
+    every = compile_backend(lp, "sharded", mesh=make_band_mesh(n))(img)
+    for k in one:
+        assert torch.equal(one[k], every[k]), k
+
+
+@pytest.mark.parametrize("name", list(ALL))
+def test_f32_walk_on_the_card_equals_the_cpu(cuda, name):
+    """The f32 walk's torch ops under XLA's rules give the CPU's bits on
+    the card: values and sign bits, fixed and float."""
+    from repro_torch.dsl.exec import run_float
+    pipe, params = ALL[name](), PARAMS.get(name, {})
+    img = _inputs(name, (40, 56), 29)
+    for got, want in (
+            (run_fixed(pipe, img, load_types(name), params, backend="f32",
+                       device=cuda),
+             run_fixed(pipe, img, load_types(name), params, backend="f32",
+                       device="cpu")),
+            (run_float(pipe, img, params, device=cuda, backend="f32"),
+             run_float(pipe, img, params, device="cpu", backend="f32"))):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            g = got[k].cpu()
+            assert g.dtype == torch.float32
+            assert torch.equal(g, want[k]) or torch.equal(
+                torch.nan_to_num(g), torch.nan_to_num(want[k])), k
+            assert torch.equal(torch.signbit(g), torch.signbit(want[k])), k

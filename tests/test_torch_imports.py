@@ -48,8 +48,10 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.benchmarks.paper_tables, "
             "repro_torch.benchmarks.alpha_delta, "
             "repro_torch.benchmarks.executor_overhead, "
+            "repro_torch.benchmarks.band_times, "
             "repro_torch.examples.quickstart, "
-            "repro_torch.examples.analyze_pipeline; "
+            "repro_torch.examples.analyze_pipeline, repro_torch.launch, "
+            "repro_torch.lowering.sharded, repro_torch.core.xla_f32; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -67,8 +69,8 @@ def test_the_obs_subpackage_is_checked():
 def test_the_benchmarks_and_examples_subpackages_are_checked():
     port = ROOT / "src" / "repro_torch"
     assert {p.name for p in PORT_FILES if p.parent == port / "benchmarks"} \
-        == {"__init__.py", "alpha_delta.py", "executor_overhead.py",
-            "paper_tables.py"}
+        == {"__init__.py", "alpha_delta.py", "band_times.py",
+            "executor_overhead.py", "paper_tables.py"}
     assert {p.name for p in PORT_FILES if p.parent == port / "examples"} \
         == {"__init__.py", "analyze_pipeline.py", "quickstart.py"}
     assert port / "pipelines" / "workflows.py" in PORT_FILES
@@ -98,6 +100,14 @@ def test_the_quickstart_runs_on_the_cpu_when_asked(capsys):
         return [ln for ln in out.splitlines()
                 if any(k in ln for k in keep)]
     assert len(lines(want)) == 9 and lines(got) == lines(want), (got, want)
+
+
+def test_the_launch_subpackage_is_checked():
+    assert {p.name for p in PORT_FILES if p.parent.name == "launch"} == \
+        {"__init__.py", "mesh.py", "sharding.py"}
+    port = ROOT / "src" / "repro_torch"
+    assert port / "lowering" / "sharded.py" in PORT_FILES
+    assert port / "core" / "xla_f32.py" in PORT_FILES
 
 
 def test_the_smt_subpackage_is_checked():

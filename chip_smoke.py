@@ -2205,6 +2205,300 @@ def sharded_and_f32(dev, card, params) -> dict:
             "f32_walk_s": {"card": card_s, "cpu": cpu_s}, "phase_s": phase_s}
 
 
+# phase 10: qwen3-4b served at full width (src/repro/configs/qwen3_4b.py)
+LM_PHASE_LIMIT_S = 60.0
+LM_ATOL, LM_RTOL = 0.15, 0.05      # tests/test_serve_elastic.py:33-34
+
+
+def lm_decode_bytes(cfg) -> int:
+    """The least bytes a decode step can move: every weight but the
+    embedding read once as bf16 (the port casts each weight's f32 store
+    to bf16 on every call, as the reference does, so a step moves about
+    4x this)."""
+    return (cfg.param_count() - cfg.vocab_padded * cfg.d_model) * 2
+
+
+def free_card() -> None:
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_close(label, got, want) -> float:
+    """got within (LM_ATOL, LM_RTOL) of want; the top-1 token equal
+    wherever want's top-2 margin exceeds twice the tolerance.  The
+    largest difference."""
+    import torch
+    got, want = got.float().cpu(), want.float().cpu()
+    diff = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=LM_ATOL, rtol=LM_RTOL):
+        raise AssertionError(f"{label}: logits differ by {diff}")
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * (
+        LM_ATOL + LM_RTOL * top2[..., 0].abs())
+    if not torch.equal(got.argmax(-1)[clear], want.argmax(-1)[clear]):
+        raise AssertionError(f"{label}: the next token differs")
+    return diff
+
+
+def lm_serve_timed(bundle, params, prompts, dev) -> dict:
+    """Serve `prompts` (max_new 16) through 4 slots after one warm-up
+    step; steps/s, tokens/s, peak memory and the tokens."""
+    import torch
+
+    from repro_torch.launch.serve import (ContinuousBatcher, Request,
+                                          serve_requests)
+    warm = ContinuousBatcher(bundle, params, 4, 64)
+    warm.step()
+    del warm
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    batcher = ContinuousBatcher(bundle, params, 4, 64)
+    reqs = [Request(i, p, 16) for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    steps = serve_requests(batcher, reqs)
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    n_tok = sum(len(r.generated) for r in reqs)
+    return {"steps": steps, "seconds": dt, "steps_per_s": steps / dt,
+            "tokens_per_s": n_tok / dt, "tokens": n_tok,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "generated": [r.generated for r in reqs]}
+
+
+def lm_step_ms(bundle, params, dev, reps: int = 5) -> dict:
+    """Time between CUDA events around `reps` decode steps at 4 slots,
+    the state carried: the plain step (one launch an op) and the step
+    replayed as a CUDA graph (`GraphedDecodeStep`, the batcher's)."""
+    import torch
+
+    from repro_torch.launch.serve import GraphedDecodeStep
+    out = {}
+    for name, step in (("eager_ms", bundle.decode_step),
+                       ("graph_ms", GraphedDecodeStep(bundle.decode_step))):
+        state = bundle.init_decode_state(4, 64, device=dev)
+        tok = torch.zeros(4, dtype=torch.int32, device=dev)
+        _, state = step(params, tok, state)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(dev)
+        start.record()
+        for _ in range(reps):
+            _, state = step(params, tok, state)
+        end.record()
+        torch.cuda.synchronize(dev)
+        out[name] = start.elapsed_time(end) / reps
+    return out
+
+
+def lm_step_trace(bundle, params, dev, card, steps: int = 3) -> dict:
+    """`steps` graphed decode steps at 4 slots (the batcher's) under
+    `torch.profiler`: the window's wall time a step, the device's busy
+    share, kernels a step and the five kernels that take the most device
+    time (trace in `chiprun_out/lm_decode_trace.json`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.launch.serve import GraphedDecodeStep
+    step = GraphedDecodeStep(bundle.decode_step)
+    state = bundle.init_decode_state(4, 64, device=dev)
+    tok = torch.zeros(4, dtype=torch.int32, device=dev)
+    _, state = step(params, tok, state)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("chip_smoke.decode"):
+            for _ in range(steps):
+                _, state = step(params, tok, state)
+            torch.cuda.synchronize(dev)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    path = out_dir / "lm_decode_trace.json"
+    prof.export_chrome_trace(str(path))
+    spans = [e for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("ph") == "X"]
+    win, = [(e["ts"], e["ts"] + e["dur"]) for e in spans
+            if e["name"] == "chip_smoke.decode"
+            and e.get("cat") == "user_annotation"]
+    kernels = [e for e in spans if e.get("cat") == "kernel"
+               and win[0] <= e["ts"] <= win[1]]
+    if not kernels:
+        print(f"lm decode trace ({card}): the profiler recorded no device "
+              f"events; busy share not measured", flush=True)
+        return {}
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    wall = (win[1] - win[0]) / 1e3
+    busy = busy_ms([(e["ts"], e["ts"] + e["dur"]) for e in kernels])
+    res = {"wall_ms": wall / steps, "busy_ms": busy / steps,
+           "busy_share": busy / wall, "launches": len(kernels) / steps,
+           "top_ms": {k[:80]: v / steps for k, v in top}}
+    print(f"lm decode trace ({card}): a step {res['wall_ms']:.3f} ms of "
+          f"wall time, device busy {res['busy_ms']:.3f} ms "
+          f"({100 * res['busy_share']:.2f}%), {res['launches']:.0f} "
+          f"kernels; most device time a step: "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in res["top_ms"].items()),
+          flush=True)
+    return res
+
+
+def lm_serving(dev, card) -> dict:
+    """Phase 10: qwen3-4b at full width on the card (docstring item 10)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.batches import make_batch
+    from repro_torch.launch.serve import GraphedDecodeStep
+    from repro_torch.models.common import tree_items, tree_map
+    from repro_torch.models.registry import get_model
+    from repro_torch.quant.autoquant import autoquant, fake_quant_params
+    from repro_torch.quant.calibrate import REVERSE_TOPO_CLASSES
+    from repro_torch.serve.prefill import prefill
+    free_card()
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen3-4b")
+    bundles = {kv: get_model(dataclasses.replace(cfg, kv_cache_dtype=kv))
+               for kv in ("bf16", "int8")}
+    params = bundles["bf16"].init_params(
+        torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    bound_ms = lm_decode_bytes(cfg) / HBM_BYTES_PER_S * 1e3
+    print(f"lm ({card}): qwen3-4b, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_padded}, {n_params / 1e9:.3f} G "
+          f"parameters in f32 on the card; a decode step's bytes bound "
+          f"{bound_ms:.3f} ms", flush=True)
+    out = {"params": n_params, "bound_ms": bound_ms, "part_s": {}}
+    t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        out["part_s"][name] = now - t_part
+        t_part = now
+
+    # (a) 8 requests, 4 slots, bf16 and int8 caches
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(0, cfg.vocab_size, size=4))
+               for _ in range(8)]
+    for kv, b in bundles.items():
+        r = lm_serve_timed(b, params, prompts, dev)
+        r.update(lm_step_ms(b, params, dev))
+        r["trace"] = lm_step_trace(b, params, dev, card)
+        out[f"serve_{kv}"] = r
+        print(f"lm ({card}): served 8 requests, {kv} KV: {r['steps']} "
+              f"decode steps in {r['seconds']:.3f} s, "
+              f"{r['steps_per_s']:.2f} steps/s, {r['tokens_per_s']:.2f} "
+              f"tokens/s; a step between CUDA events: graphed "
+              f"{r['graph_ms']:.3f} ms ({r['graph_ms'] / bound_ms:.2f}x the "
+              f"bound), plain {r['eager_ms']:.3f} ms; peak "
+              f"{r['peak_gb']:.2f} GB", flush=True)
+    pairs = [(a, b) for ra, rb in zip(out["serve_bf16"]["generated"],
+                                      out["serve_int8"]["generated"])
+             for a, b in zip(ra, rb)]
+    out["kv_agreement"] = float(np.mean([a == b for a, b in pairs]))
+    print(f"lm ({card}): int8 KV against bf16 KV, generated-token "
+          f"agreement {out['kv_agreement']:.4f}", flush=True)
+    part("a")
+
+    # (b) fused prefill of 128 tokens against 128 decode steps
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, 128)).astype(np.int32)).to(dev)
+    b = bundles["bf16"]
+    state = b.init_decode_state(1, 136, device=dev)
+    step = GraphedDecodeStep(b.decode_step)
+    for t in range(128):
+        step_logits, state = step(params, toks[:, t], state)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    pf_logits, pf_state = prefill(params, toks, cfg, 136)
+    torch.cuda.synchronize(dev)
+    out["prefill_s"] = time.perf_counter() - t0
+    out["prefill_max_diff"] = lm_close("prefill vs 128 decode steps",
+                                       pf_logits, step_logits)
+    nxt = step_logits.argmax(-1).to(torch.int32)
+    if not torch.equal(b.decode_step(params, nxt, state)[0].argmax(-1),
+                       b.decode_step(params, nxt, pf_state)[0].argmax(-1)):
+        raise AssertionError("prefill: the next step's token differs")
+    print(f"lm ({card}): fused prefill of 128 tokens in "
+          f"{out['prefill_s']:.3f} s, against 128 decode steps: largest "
+          f"logit difference {out['prefill_max_diff']:.5f}, next token "
+          f"equal", flush=True)
+    del state, pf_state
+    part("b")
+
+    # (c) the card against the host CPU, 2 layers, the same weights
+    cut = dataclasses.replace(cfg, n_layers=2)
+    p2 = dict(params, blocks=tree_map(lambda t: t[:2], params["blocks"]))
+    p2_cpu = tree_map(lambda t: t.cpu(), p2)
+    batch = make_batch(cut, 2, 16, seed=2, device=dev)
+    t0 = time.perf_counter()
+    diffs = {"forward": lm_close(
+        "forward, card vs host CPU",
+        get_model(cut).forward(p2, batch),
+        get_model(cut).forward(p2_cpu, tree_map(lambda t: t.cpu(), batch)))}
+    for kv in ("bf16", "int8"):
+        m = get_model(dataclasses.replace(cut, kv_cache_dtype=kv))
+        s_gpu = m.init_decode_state(2, 16, device=dev)
+        s_cpu = m.init_decode_state(2, 16, device="cpu")
+        d = 0.0
+        for t in range(4):
+            got, s_gpu = m.decode_step(p2, batch["tokens"][:, t], s_gpu)
+            want, s_cpu = m.decode_step(p2_cpu, batch["tokens"][:, t].cpu(),
+                                        s_cpu)
+            d = max(d, lm_close(f"decode {kv}, card vs host CPU", got, want))
+        diffs[f"decode_{kv}"] = d
+    out["card_vs_cpu"] = diffs
+    out["card_vs_cpu_s"] = time.perf_counter() - t0
+    print(f"lm ({card}): 2 layers at full width, card against host CPU: "
+          f"largest logit differences {diffs} ({out['card_vs_cpu_s']:.2f} s)",
+          flush=True)
+    del p2, p2_cpu
+    part("c")
+
+    # (d) 8-bit weights served, then AutoQuant on 2 probe batches of 2x16
+    q8 = fake_quant_params(params, {c: 8 for c in REVERSE_TOPO_CLASSES})
+    r = lm_serve_timed(bundles["bf16"], q8, prompts, dev)
+    del q8
+    pairs = [(a, c) for ra, rc in zip(out["serve_bf16"]["generated"],
+                                      r["generated"]) for a, c in zip(ra, rc)]
+    out["quant8_agreement"] = float(np.mean([a == c for a, c in pairs]))
+    print(f"lm ({card}): 8-bit weights served at {r['tokens_per_s']:.2f} "
+          f"tokens/s; generated-token agreement with bf16 weights "
+          f"{out['quant8_agreement']:.4f}", flush=True)
+    free_card()
+    probes = [make_batch(cfg, 2, 16, seed=s, device=dev) for s in range(2)]
+    t0 = time.perf_counter()
+    res = autoquant(bundles["bf16"], params, probes, target_agreement=0.97)
+    torch.cuda.synchronize(dev)
+    out["autoquant"] = {"bits": res.bits, "profile_passes":
+                        res.profile_passes, "uniform_bits": res.uniform_bits,
+                        "quality": res.quality, "bytes_ratio": res.bytes_ratio,
+                        "seconds": time.perf_counter() - t0}
+    print(f"lm ({card}): autoquant at full width: bits {res.bits}, "
+          f"{res.profile_passes} profile passes, quality {res.quality:.4f}, "
+          f"{out['autoquant']['seconds']:.2f} s", flush=True)
+    del params
+    free_card()
+    part("d")
+    for k in ("serve_bf16", "serve_int8"):
+        out[k].pop("generated")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"lm phase ({card}): {out['phase_s']:.2f} s (parts: "
+          + ", ".join(f"({k}) {v:.2f} s" for k, v in out["part_s"].items())
+          + ")", flush=True)
+    assert out["phase_s"] < LM_PHASE_LIMIT_S, \
+        f"phase 10 took {out['phase_s']:.1f} s, over {LM_PHASE_LIMIT_S} s"
+    print(json.dumps({"lm_serving": out}), flush=True)
+    return out
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -2304,8 +2598,11 @@ def main() -> int:
     # -- 9. sharded and f32 --------------------------------------------------
     sharded = sharded_and_f32(dev, card, params)
 
-    # -- 10. result lines --------------------------------------------------
-    print(f"chip_smoke: phases 1-9 in {time.perf_counter() - t_script:.2f} s "
+    # -- 10. LM serving ------------------------------------------------------
+    lm_serving(dev, card)
+
+    # -- 11. result lines --------------------------------------------------
+    print(f"chip_smoke: phases 1-10 in {time.perf_counter() - t_script:.2f} s "
           f"({card})", flush=True)
     usm_t = band["usm"]
     print(json.dumps({"kernels": [{

@@ -1070,3 +1070,138 @@ def test_f32_walk_on_the_card_equals_the_cpu(cuda, name):
             assert torch.equal(g, want[k]) or torch.equal(
                 torch.nan_to_num(g), torch.nan_to_num(want[k])), k
             assert torch.equal(torch.signbit(g), torch.signbit(want[k])), k
+
+
+# ---------------------------------------------------------------------------
+# the dense LM at smoke size: the card against the CPU
+# ---------------------------------------------------------------------------
+
+LM_ATOL = 0.02          # logits within +-2; cuBLAS sums in another order
+
+
+def _lm(arch, kv="bf16"):
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.registry import get_model
+    cfg = dataclasses.replace(get_smoke_config(arch), kv_cache_dtype=kv)
+    m = get_model(cfg)
+    params = m.init_params(torch.Generator().manual_seed(0))
+    return cfg, m, params
+
+
+def _to(tree, dev):
+    from repro_torch.models.common import tree_map
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def _close_logits(got, want, atol):
+    """Within atol, the top-1 token equal wherever the CPU's top-2 margin
+    exceeds twice the tolerance."""
+    got, want = got.float().cpu(), want.float().cpu()
+    assert torch.allclose(got, want, atol=atol, rtol=0), \
+        float((got - want).abs().max())
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * atol
+    assert torch.equal(got.argmax(-1)[clear], want.argmax(-1)[clear])
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "minicpm-2b"])
+def test_lm_forward_and_decode_on_the_card_equal_the_cpu(cuda, arch, kv):
+    """cuBLAS's bf16 products summed in f32 against the CPU's f32 sums of
+    the same products: logits within LM_ATOL; the caches after 4 steps
+    within one bf16 unit (int8 codes within one step)."""
+    from repro_torch.data.batches import make_batch
+    cfg, m, params = _lm(arch, kv)
+    gp = _to(params, cuda)
+    batch = make_batch(cfg, 2, 16, seed=4, device="cpu")
+    _close_logits(m.forward(gp, _to(batch, cuda)), m.forward(params, batch),
+                  LM_ATOL)
+    s_cpu = m.init_decode_state(2, 16, device="cpu")
+    s_gpu = m.init_decode_state(2, 16, device=cuda)
+    for t in range(4):
+        tok = batch["tokens"][:, t]
+        want, s_cpu = m.decode_step(params, tok, s_cpu)
+        got, s_gpu = m.decode_step(gp, tok.to(cuda), s_gpu)
+        _close_logits(got, want, LM_ATOL)
+    assert int(s_gpu["length"]) == int(s_cpu["length"]) == 4
+    for k in ("k", "v"):
+        g, w = s_gpu[k].float().cpu(), s_cpu[k].float()
+        tol = 1 if kv == "int8" else 2.0 ** -7 * w.abs() + 3e-5
+        assert ((g - w).abs() <= tol).all(), k
+
+
+def test_lm_prefill_on_the_card_equals_stepwise_decode(cuda):
+    """The reference test's check on the card: atol 0.15 / rtol 0.05, the
+    next token's argmax equal after one more step from either state."""
+    cfg, m, params = _lm("qwen3-4b")
+    gp = _to(params, cuda)
+    from repro_torch.serve.prefill import prefill
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (1, 8)).astype(np.int32)).to(cuda)
+    state = m.init_decode_state(1, 16, device=cuda)
+    for t in range(8):
+        ref, state = m.decode_step(gp, toks[:, t], state)
+    pf, pstate = prefill(gp, toks, cfg, 16)
+    assert torch.allclose(pf, ref, atol=0.15, rtol=0.05)
+    nxt = ref.argmax(-1).to(torch.int32)
+    l1, _ = m.decode_step(gp, nxt, state)
+    l2, _ = m.decode_step(gp, nxt, pstate)
+    assert torch.equal(l1.argmax(-1), l2.argmax(-1))
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_lm_batcher_tokens_on_the_card_equal_the_cpu(cuda, kv):
+    """The example's setup (4 requests, 2 slots, max_new 8, max_len 64):
+    every generated token equal."""
+    from repro_torch.launch.serve import (ContinuousBatcher, Request,
+                                          serve_requests)
+    cfg, m, params = _lm("qwen3-4b", kv)
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(0, cfg.vocab_size, size=4))
+               for _ in range(4)]
+    out = []
+    for p in (params, _to(params, cuda)):
+        reqs = [Request(i, q, 8) for i, q in enumerate(prompts)]
+        assert serve_requests(ContinuousBatcher(m, p, 2, 64), reqs) == 22
+        out.append([r.generated for r in reqs])
+    assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2, 12])
+def test_lm_fake_quant_params_on_the_card_equal_the_cpu(cuda, bits):
+    """Per-channel absmax scales, true division, half-even codes: the card
+    gives the CPU's values at tolerance 0."""
+    from repro_torch.models.common import tree_items
+    from repro_torch.quant.autoquant import fake_quant_params
+    from repro_torch.quant.calibrate import REVERSE_TOPO_CLASSES
+    _, _, params = _lm("qwen3-4b")
+    chosen = {c: bits for c in REVERSE_TOPO_CLASSES}
+    want = dict(tree_items(fake_quant_params(params, chosen)))
+    got = dict(tree_items(fake_quant_params(_to(params, cuda), chosen)))
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].is_cuda and torch.equal(got[k].cpu(), v), k
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_lm_graphed_decode_step_equals_the_plain_step(cuda, kv):
+    """The batcher's CUDA graph of `decode_step` replays the plain step's
+    kernels: 5 steps, logits and state equal at tolerance 0, from a fresh
+    state and from a state handed in again."""
+    from repro_torch.launch.serve import GraphedDecodeStep
+    cfg, m, params = _lm("qwen3-4b", kv)
+    gp = _to(params, cuda)
+    step = GraphedDecodeStep(m.decode_step)
+    s_plain = m.init_decode_state(2, 16, device=cuda)
+    s_graph = m.init_decode_state(2, 16, device=cuda)
+    toks = torch.arange(10, dtype=torch.int32, device=cuda).reshape(5, 2)
+    for t in range(5):
+        want, s_plain = m.decode_step(gp, toks[t], s_plain)
+        got, s_graph = step(gp, toks[t], s_graph)
+        assert torch.equal(got, want)
+        assert all(torch.equal(s_graph[k], v) for k, v in s_plain.items())
+    fresh = m.init_decode_state(2, 16, device=cuda)
+    got, _ = step(gp, toks[0], fresh)
+    want, _ = m.decode_step(gp, toks[0], fresh)
+    assert torch.equal(got, want)

@@ -51,7 +51,12 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.benchmarks.band_times, "
             "repro_torch.examples.quickstart, "
             "repro_torch.examples.analyze_pipeline, repro_torch.launch, "
-            "repro_torch.lowering.sharded, repro_torch.core.xla_f32; "
+            "repro_torch.lowering.sharded, repro_torch.core.xla_f32, "
+            "repro_torch.configs, repro_torch.models.registry, "
+            "repro_torch.models.lm, repro_torch.data.batches, "
+            "repro_torch.serve.prefill, repro_torch.launch.serve, "
+            "repro_torch.quant.autoquant, repro_torch.quant.range_lm, "
+            "repro_torch.examples.serve_quantized; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -72,7 +77,8 @@ def test_the_benchmarks_and_examples_subpackages_are_checked():
         == {"__init__.py", "alpha_delta.py", "band_times.py",
             "executor_overhead.py", "paper_tables.py"}
     assert {p.name for p in PORT_FILES if p.parent == port / "examples"} \
-        == {"__init__.py", "analyze_pipeline.py", "quickstart.py"}
+        == {"__init__.py", "analyze_pipeline.py", "quickstart.py",
+            "serve_quantized.py"}
     assert port / "pipelines" / "workflows.py" in PORT_FILES
     assert port / "core" / "npops.py" in PORT_FILES
 
@@ -104,10 +110,25 @@ def test_the_quickstart_runs_on_the_cpu_when_asked(capsys):
 
 def test_the_launch_subpackage_is_checked():
     assert {p.name for p in PORT_FILES if p.parent.name == "launch"} == \
-        {"__init__.py", "mesh.py", "sharding.py"}
+        {"__init__.py", "mesh.py", "serve.py", "sharding.py"}
     port = ROOT / "src" / "repro_torch"
     assert port / "lowering" / "sharded.py" in PORT_FILES
     assert port / "core" / "xla_f32.py" in PORT_FILES
+
+
+def test_the_lm_subpackages_are_checked():
+    port = ROOT / "src" / "repro_torch"
+
+    def names(sub):
+        return {p.name for p in PORT_FILES if p.parent == port / sub}
+    assert names("models") == {"__init__.py", "attention.py", "blocks.py",
+                               "common.py", "lm.py", "registry.py"}
+    assert names("quant") == {"__init__.py", "autoquant.py", "calibrate.py",
+                              "qtypes.py", "range_lm.py"}
+    assert names("data") == {"__init__.py", "batches.py"}
+    assert names("configs") == {p.name for p in (
+        ROOT / "src" / "repro" / "configs").glob("*.py")}
+    assert port / "serve" / "prefill.py" in PORT_FILES
 
 
 def test_the_smt_subpackage_is_checked():

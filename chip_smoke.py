@@ -5,9 +5,10 @@
 
 Phases (any failure raises, and the exit code is not 0):
 
-1. print the card's name and power limit; build the four kernel
+1. print the card's name and power limit; build the five kernel
    libraries (`fused_band.cu`, `stencil.cu`, `qmatmul.cu`, `qdq.cu` under
-   `src/repro_torch/kernels/*/csrc/`), one nvcc each, in parallel;
+   `src/repro_torch/kernels/*/csrc/`, and the SMT engine's
+   `src/repro_torch/smt/csrc/smt_walk.cu`), one nvcc each, in parallel;
 2. hold the band kernel against its plain PyTorch version on the card,
    island by island with `torch.equal`: usm, hcd, dus_ext, of and
    of_pyramid (frame pairs) at 1080x1920, batch 2, dus_ext at 96x96 on
@@ -99,10 +100,20 @@ Phases (any failure raises, and the exit code is not 0):
    the card and on the CPU, printing seconds and boxes a second of each,
    and check every stage's range equal on both (a difference is printed
    with its stage and the first op of its CSP that differs, and fails
-   the run); run the SMT column at the default budget on the host's CPU
-   for hcd, of and of_pyramid (whose card runs reach the deadline) and
-   print its seconds, boxes, seed-kept stages and sum of alphas beside
-   the card's; print the phase's seconds;
+   the run); for those of hcd, of and of_pyramid whose card run reached
+   the deadline, run the SMT column at the default budget on the host's
+   CPU and print its seconds, boxes, seed-kept stages and sum of alphas
+   beside the card's; the SMT walk kernels (`smt_hc4`, `smt_grad`):
+   their launches in the analysis above, counted from 0 (each must
+   launch), and on the throughput workload's CSP (HCD det) at 64, 512
+   and 4096 boxes each against its plain version on the card, every bit,
+   with ms a launch beside the plain version's and the bound; boxes a
+   second of `repro_torch.benchmarks.smt_throughput`'s workload on the
+   card and on the host's CPU, with host syncs, device operations and
+   walk launches a box and the device's busy share; Table 11 at the
+   reference's budgets on the card, through `alpha_delta` against the
+   goldens (nesting must hold; a grown alpha is printed); print the
+   phase's seconds;
 8. workflows on the card: count how often the card's `pow` (for x ** n
    outside the band kernel) differs from numpy's, and check its `sqrt`
    and npops' min/max of +-0 against numpy's; (a) run the paper's
@@ -1665,9 +1676,11 @@ def smt_on_the_card(dev, card, params) -> dict:
     from repro_torch.pipelines.types import design_from_plan
     from repro_torch.smt import SMTConfig, analyze_smt
     from repro_torch.smt import solver as S
+    from repro_torch.smt import walk as W
     t_phase = time.perf_counter()
     out = {"pipelines": {}, "card_vs_cpu": {}}
     clear_memo()
+    W.LAUNCHES.update(smt_hc4=0, smt_grad=0)
     for k, name in enumerate(ANALYZED):
         pipe, p = ALL[name](), params.get(name, {})
         samples = [on_card(inputs(name, FRAME, 300 + 10 * k + 2 * i), dev)
@@ -1727,6 +1740,11 @@ def smt_on_the_card(dev, card, params) -> dict:
                   f"{sorted(design.phases) or 'no stage'}", flush=True)
         out["pipelines"][name] = row
         clear_memo()
+    out["walk_launches"] = dict(W.LAUNCHES)
+    print(f"smt walk kernels launched in (a), counted from 0 ({card}): "
+          f"{out['walk_launches']}", flush=True)
+    for k, n in out["walk_launches"].items():
+        assert n > 0, f"{k}: the SMT column on the card never launched it"
     cfg = SMTConfig(time_budget_s=float("inf"))
     for name in SMT_CPU_CHECK:
         res, row = {}, {}
@@ -1760,6 +1778,10 @@ def smt_on_the_card(dev, card, params) -> dict:
                                  f"from the CPU's on {diff}")
     out["cpu_at_the_budget"] = {}
     for name in SMT_CPU_BUDGET:
+        if not out["pipelines"][name]["budget_exhausted"]["smt"]:
+            print(f"smt {name}: every stage finished within the budget on "
+                  f"the card ({card}); no host CPU run needed", flush=True)
+            continue
         pipe = ALL[name]()
         clear_memo()
         with obs.tracing() as tr:
@@ -1783,9 +1805,288 @@ def smt_on_the_card(dev, card, params) -> dict:
               f"{card_row['alpha_sums']['interval']}); smt ⊆ interval "
               f"holds", flush=True)
     clear_memo()
+    out["walks"] = smt_walk_kernels(dev, card)
+    out["throughput"] = smt_throughput_on_both(dev, card)
+    out["table11"] = table11_on_the_card(dev, card)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"smt phase ({card}): {out['phase_s']:.2f} s", flush=True)
     return out
+
+
+# phase 7 (e): the walk kernels on the throughput workload's CSP (HCD
+# det, 259 variables) at frontiers of these many boxes; 512 is
+# `BPBudget.batch`, the engine's batch
+SMT_WALK_N = (64, 512, 4096)
+SMT_WALK_MAIN_N = 512
+
+
+def smt_frontier(prog, seed, n):
+    """Seeded random sub-boxes of the CSP's box (even rows on its base
+    variables, odd rows on every variable, so some die), with infinite
+    bounds, zero bounds of both signs and point intervals."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    nv = prog.nvars
+    ilo = np.broadcast_to(prog.init_lo, (n, nv))
+    ihi = np.broadcast_to(prog.init_hi, (n, nv))
+    flo = np.where(np.isfinite(ilo), ilo, -1e3)
+    fhi = np.where(np.isfinite(ihi), ihi, 1e3)
+    u = np.sort(rng.random((2, n, nv)), axis=0)
+    base = np.zeros(nv, bool)
+    base[prog.base] = True
+    wild = (np.arange(n) % 2 == 1)[:, None]
+    keep = (rng.random((n, nv)) < 0.5) | (~wild & ~base)
+    lo = np.where(keep, ilo, flo + (fhi - flo) * u[0])
+    hi = np.where(keep, ihi, flo + (fhi - flo) * u[1])
+    m = rng.random((n, nv))
+    lo = np.where(m < 0.04, -np.inf, lo)
+    hi = np.where((m > 0.04) & (m < 0.08), np.inf, hi)
+    zero = rng.choice([0.0, -0.0], (n, nv))
+    z = (m > 0.08) & (m < 0.12) & (wild | ((lo <= 0.0) & (hi >= 0.0)))
+    lo, hi = np.where(z, zero, lo), np.where(z, np.abs(hi), hi)
+    point = (m > 0.18) & (m < 0.22) & np.isfinite(lo) & (wild | base)
+    hi = np.where(point, lo, hi)
+    return np.ascontiguousarray(lo), np.ascontiguousarray(hi)
+
+
+def same_bits(label, got, want) -> None:
+    """Every f64 bit equal (a NaN's payload aside, the sign of a zero
+    counted), or raise."""
+    import numpy as np
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    gn, wn = np.isnan(g), np.isnan(w)
+    if not (np.array_equal(gn, wn) and np.array_equal(
+            g[~gn].view(np.int64), w[~wn].view(np.int64))):
+        raise AssertionError(f"{label}: kernel != plain version")
+
+
+# f64 operations a def step of each opcode costs, forward (with its meet)
+# and backward (each variable slot's projection and meet), counted from
+# the transfer functions (`solver._b_*`): an add, multiply, divide, square
+# root, compare-and-select each one
+HC4_FWD_OPS = {0: 7, 1: 7, 2: 18, 3: 20, 4: 11, 5: 9, 6: 9, 7: 7, 8: 7,
+               9: 13}
+HC4_BWD_OPS = {0: 7, 1: 7, 2: 24, 3: 24, 4: 12, 5: 10, 6: 8, 7: 12, 8: 12,
+               9: 8}
+# a def step of the gradient walk: its parts, then per variable slot a
+# product of intervals (13) and two sums (2)
+GRAD_PART_OPS = {0: 0, 1: 0, 2: 0, 3: 22, 4: 6, 5: 3, 6: 6, 7: 0, 8: 0,
+                 9: 8}
+
+
+def walk_bounds(prog, N, rounds, passes, glo, ghi) -> dict:
+    """Least times of one hc4 call (`rounds` rounds, `passes` passes over
+    N boxes) and of one gradient call: bytes (the frontier read and
+    written, the alive flags, the op table; the gradients written) and
+    f64 operations (the def steps this run made at `HC4_FWD_OPS` and
+    `HC4_BWD_OPS`; for the gradients the defs whose adjoint is not zero
+    on each box) at the card's f64 rate."""
+    import numpy as np
+    nv = prog.nvars
+    table = prog.ndefs * (4 * 4 + 4 * 4 + 4 * 8)
+    slots = (prog.argv >= 0).sum(axis=1)
+    ops_round = sum(HC4_FWD_OPS[int(o)] + HC4_BWD_OPS[int(o)] * max(1, s)
+                    for o, s in zip(prog.opcode, slots))
+    hc4 = least_ms(2 * 2 * N * nv * 8 + 2 * N + table,
+                   [(N * rounds * passes * ops_round, F64_OPS_PER_S)])
+    g = glo.cpu().numpy()[:, prog.def_var] != 0.0
+    g |= ghi.cpu().numpy()[:, prog.def_var] != 0.0
+    per_def = np.array([GRAD_PART_OPS[int(o)] + 15 * s
+                        for o, s in zip(prog.opcode, slots)])
+    grad = least_ms(2 * N * nv * 8 + 2 * N * nv * 8 + table,
+                    [(int((g * per_def).sum()), F64_OPS_PER_S)])
+    return {"hc4": hc4, "grad": grad}
+
+
+def smt_walk_kernels(dev, card) -> dict:
+    """Phase 7 (e): each walk kernel against its plain version on the
+    card, on seeded frontiers of the throughput workload's CSP at
+    `SMT_WALK_N` boxes, every bit of every row; ms a launch of each
+    (CUDA events, a fresh copy of the frontier before each hc4 launch,
+    outside its window) beside its plain version's and its bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.benchmarks.smt_throughput import workload
+    from repro_torch.smt import encoder as E
+    from repro_torch.smt import solver as S
+    from repro_torch.smt import walk as W
+    csp, root = workload()
+    prog = E.compile_csp(csp)
+    dp = E.device_program(prog, dev)
+    out = {}
+    for N in SMT_WALK_N:
+        lo, hi = smt_frontier(prog, N, N)
+        alive0 = torch.from_numpy(
+            np.random.default_rng(N + 1).random(N) < 0.9).to(dev)
+        lo0, hi0 = torch.from_numpy(lo).to(dev), torch.from_numpy(hi).to(dev)
+        res = {}
+        for way in ("kernel", "plain"):
+            tlo, thi = lo0.clone(), hi0.clone()
+            stats = {}
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            mid = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            if way == "kernel":
+                a = W.hc4_walk(dp, tlo, thi, alive0, 6, stats)
+                mid.record()
+                g = W.grad_walk(dp, tlo, thi, root)
+            else:
+                a = S._hc4_plain(dp, tlo, thi, alive0, 6)
+                mid.record()
+                g = S._gradients_plain(dp, prog.nvars, tlo, thi, root)
+            stop.record()
+            torch.cuda.synchronize()
+            res[way] = {"out": (a, tlo, thi) + tuple(g), "stats": stats,
+                        "hc4_ms": start.elapsed_time(mid),
+                        "grad_ms": mid.elapsed_time(stop)}
+        k, p = res["kernel"]["out"], res["plain"]["out"]
+        if not torch.equal(k[0], p[0]):
+            raise AssertionError(f"smt_hc4 N={N}: alive != plain version")
+        for label, g, w in zip(("lo", "hi", "glo", "ghi"), k[1:], p[1:]):
+            same_bits(f"smt walk N={N} {label}", g, w)
+        # ms a launch, warm: hc4 on a fresh copy each time, the copy
+        # outside the timed window
+        tlo, thi = lo0.clone(), hi0.clone()
+        pairs = []
+        for _ in range(5):
+            tlo.copy_(lo0)
+            thi.copy_(hi0)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            W.hc4_walk(dp, tlo, thi, alive0, 6)
+            e1.record()
+            pairs.append((e0, e1))
+        torch.cuda.synchronize()
+        hc4_ms = sum(a.elapsed_time(b) for a, b in pairs) / len(pairs)
+        grad_ms = cuda_ms(lambda: W.grad_walk(dp, lo0, hi0, root), 20)
+        st = res["kernel"]["stats"]
+        rounds, passes = int(st["rounds"]), int(st["passes"])
+        bounds = walk_bounds(prog, N, rounds, passes, k[3], k[4])
+        live = int(k[0].sum())
+        out[N] = {"hc4_ms": hc4_ms, "grad_ms": grad_ms,
+                  "hc4_plain_ms": res["plain"]["hc4_ms"],
+                  "grad_plain_ms": res["plain"]["grad_ms"],
+                  "rounds": rounds, "passes": passes, "live": live,
+                  "hc4_bound_ms": bounds["hc4"][0],
+                  "hc4_bound_by": bounds["hc4"][1],
+                  "grad_bound_ms": bounds["grad"][0],
+                  "grad_bound_by": bounds["grad"][1]}
+        r = out[N]
+        print(f"smt walk kernels, hcd det ({prog.nvars} variables), "
+              f"{N} boxes ({live} live after hc4; {rounds} rounds, "
+              f"{passes} pass(es)) ({card}): every bit equal to the plain "
+              f"version on the card; smt_hc4 {hc4_ms:.4f} ms a launch "
+              f"(plain {r['hc4_plain_ms']:.2f} ms; bound "
+              f"{r['hc4_bound_ms']:.4f} ms, {r['hc4_bound_by']}), smt_grad "
+              f"{grad_ms:.4f} ms (plain {r['grad_plain_ms']:.2f} ms; bound "
+              f"{r['grad_bound_ms']:.4f} ms, {r['grad_bound_by']})",
+              flush=True)
+    return out
+
+
+def smt_throughput_on_both(dev, card) -> dict:
+    """Phase 7 (f): `repro_torch.benchmarks.smt_throughput`'s workload
+    (HCD det >= 2^30, 4,096 nodes) on the card, with its syncs, device
+    operations and walk launches a box and the device's busy share, and
+    on the host's CPU."""
+    from repro_torch.benchmarks import smt_throughput as T
+    res = {"card": T.measure(dev), "cpu": T.measure("cpu", counts=False)}
+    c, h = res["card"], res["cpu"]
+    busy = ("not measured (the profiler saw no device events)"
+            if c.get("busy_share") is None
+            else f"{100 * c['busy_share']:.2f}% of the traced wall time, "
+                 f"{c['busy_s']:.3f} s, "
+                 f"{100 * c['busy_share_untraced']:.2f}% of the same "
+                 f"call untraced ({c['untraced_s']:.3f} s)")
+    print(f"smt throughput, hcd det >= 2^30, {c['nodes']} nodes "
+          f"({card}): card {c['boxes_per_s']:.1f} boxes/s ({c['s']:.3f} s, "
+          f"{c['status']}), host CPU {h['boxes_per_s']:.1f} boxes/s "
+          f"({h['s']:.3f} s, {h['status']}); on the card "
+          f"{c['syncs_per_box']:.3f} host syncs a box; traced "
+          f"{c['trace_nodes']} nodes: device busy {busy}, "
+          f"{c.get('device_ops_per_box', 0):.2f} device operations a box, "
+          f"walk launches a box {c.get('walk_launches_per_box')}",
+          flush=True)
+    assert c["boxes_per_s"] > 0 and h["boxes_per_s"] > 0
+    return res
+
+
+TABLE11_CHILD = (
+    "import json, sys, time\n"
+    "import torch\n"
+    "torch.set_num_threads(1)\n"
+    "from repro_torch.benchmarks.paper_tables import table11_smt_alphas\n"
+    "t0 = time.perf_counter()\n"
+    "_, derived = table11_smt_alphas(device='cuda', out_dir=sys.argv[2],\n"
+    "                                groups=[sys.argv[1]])\n"
+    "print(json.dumps({'s': time.perf_counter() - t0, "
+    "'derived': derived}))\n")
+
+
+def table11_on_the_card(dev, card) -> dict:
+    """Phase 7 (g): Table 11 at the reference's budgets on the card
+    (`paper_tables.table11_smt_alphas`), its six benchmark groups in six
+    processes at once on the one card (the engine leaves the card idle
+    most of the time and each group is one host thread; run one after
+    another they take 385 s, PR 32 run 2), then `alpha_delta` against
+    the committed goldens on the groups' plans joined: a line a group,
+    the stages whose alpha grew and the golden rows missing.  The
+    nesting profile <= smt <= interval must hold in every group; a grown
+    alpha is the engine's speed on this card, printed, not a failure of
+    the run."""
+    import os
+
+    from repro_torch.benchmarks import alpha_delta
+    from repro_torch.benchmarks.paper_tables import table11_makers
+    base = ROOT / "chiprun_out" / "paper_tables"
+    groups = list(table11_makers(dev))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = {g: subprocess.Popen(
+        [sys.executable, "-c", TABLE11_CHILD, g, str(base / g)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for g in groups}
+    res = {}
+    try:
+        for g, proc in procs.items():
+            out, err = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise AssertionError(f"table 11 {g}: exit {proc.returncode}"
+                                     f"\n{err[-3000:]}")
+            res[g] = json.loads(out.strip().splitlines()[-1])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    secs = time.perf_counter() - t0
+    joined = {"version": 1, "groups": {}, "device": None}
+    for g in groups:
+        assert "nesting holds: True" in res[g]["derived"], (g, res[g])
+        part = json.loads((base / g / "table11_plans.json").read_text())
+        joined["groups"].update(part["groups"])
+        joined["device"] = part["device"]
+    plans = base / "table11_plans.json"
+    plans.write_text(json.dumps(joined, sort_keys=True, indent=1))
+    lines, regressed, dropped = alpha_delta.report(str(plans),
+                                                   alpha_delta.GOLDEN)
+    print(f"table 11 on the card ({card}): {secs:.2f} s for the six "
+          f"groups at once ("
+          + ", ".join(f"{g} {res[g]['s']:.2f} s" for g in groups)
+          + "); nesting holds in every group", flush=True)
+    for ln in lines:
+        print(f"  {ln}", flush=True)
+    verdict = ("equal to the golden or better on every stage"
+               if not regressed else f"alpha grew on {regressed}")
+    print(f"table 11 on the card against the goldens: {verdict}; golden "
+          f"rows missing: {dropped or 'none'}", flush=True)
+    return {"s": secs, "group_s": {g: res[g]["s"] for g in groups},
+            "regressed": [[str(x) for x in r] for r in regressed],
+            "missing": [list(k) for k in dropped]}
 
 
 # phase 8 runs the paper's tables on the card and on the host's CPU, the
@@ -2499,6 +2800,30 @@ def lm_serving(dev, card) -> dict:
     return out
 
 
+def smt_walk_rows(smt) -> list:
+    """The walk kernels' entries of the kernels line: launches from phase
+    7 (a), the rest at the engine's batch, `SMT_WALK_MAIN_N` boxes."""
+    r = smt["walks"][SMT_WALK_MAIN_N]
+    src = "src/repro_torch/smt/csrc/smt_walk.cu"
+    return [{"name": "smt_hc4", "route": "cuda", "source": src,
+             "replaces": "none (no TPU kernel: the reference's SMT engine "
+                         "is numpy, src/repro/smt/solver.py:1057 "
+                         "_hc4_rows)",
+             "launches": smt["walk_launches"]["smt_hc4"],
+             "max_abs_err": 0.0, "ms": r["hc4_ms"],
+             "plain_ms": r["hc4_plain_ms"], "bound_ms": r["hc4_bound_ms"],
+             "bound_by": r["hc4_bound_by"], "library_ms": None,
+             "walks": smt["walks"]},
+            {"name": "smt_grad", "route": "cuda", "source": src,
+             "replaces": "none (no TPU kernel: the reference's SMT engine "
+                         "is numpy, src/repro/smt/solver.py:1320 "
+                         "_gradients_rows)",
+             "launches": smt["walk_launches"]["smt_grad"],
+             "max_abs_err": 0.0, "ms": r["grad_ms"],
+             "plain_ms": r["grad_plain_ms"], "bound_ms": r["grad_bound_ms"],
+             "bound_by": r["grad_bound_by"], "library_ms": None}]
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -2618,7 +2943,7 @@ def main() -> int:
         "serving": {"usm": served, "of": flow},
         "analysis": analysis, "design_search": design_search,
         "smt": smt, "workflows": workflows, "sharded": sharded}]
-        + library_rows}))
+        + library_rows + smt_walk_rows(smt)}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Build the port's CUDA sources with `nvcc`, load them with ctypes and
 call them.
 
-Each source under `<kernel>/csrc/*.cu` has one or more plain C entry
+Each source under a `csrc/` directory (`<kernel>/csrc/*.cu`, and the
+SMT engine's `smt/csrc/smt_walk.cu`) has one or more plain C entry
 points.  It is compiled once into a shared library under
 `build/kernels/` at the root of the checkout, named by a hash of the
 source, of every other file under its `csrc/` directory except the
@@ -28,7 +29,8 @@ BUILD_DIR = HERE.parents[2] / "build" / "kernels"
 SOURCES = {"fused_band": HERE / "stencil" / "csrc" / "fused_band.cu",
            "stencil": HERE / "stencil" / "csrc" / "stencil.cu",
            "qmatmul": HERE / "qmatmul" / "csrc" / "qmatmul.cu",
-           "qdq": HERE / "qdq" / "csrc" / "qdq.cu"}
+           "qdq": HERE / "qdq" / "csrc" / "qdq.cu",
+           "smt_walk": HERE.parent / "smt" / "csrc" / "smt_walk.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -60,6 +62,13 @@ SIGNATURES = {
     "qdq": {"block_quantize_launch": [_P, _P, _P, _I64, _I, _I, _P],
             "block_dequantize_launch": [_P, _P, _P, _I64, _I, _P],
             "block_quantize_check": [_P, _I, _P]},
+    # lo, hi, alive_in, alive_out, back_lo, back_hi, scratch, def_var,
+    # opcode, argv, argc, pow_n, cmp, N, nvars, ndefs, rounds, stream /
+    # ndefs, rounds / lo, hi, glo, ghi, def_var, opcode, argv, argc,
+    # pow_n, cmp, N, nvars, ndefs, root, stream
+    "smt_walk": {"smt_hc4_launch": [_P] * 13 + [_I] * 4 + [_P],
+                 "smt_hc4_scratch_ints": [_I, _I],
+                 "smt_grad_launch": [_P] * 10 + [_I] * 4 + [_P]},
 }
 
 _LOCK = threading.Lock()

@@ -536,7 +536,9 @@ class DeviceProgram:
     on the device (None where the slot is a variable), so every operand
     the engine meets is a tensor there; ``base`` indexes the base
     variables on the device; ``split`` is the static split-candidate
-    table as ``(var, split_at, is_select_threshold)`` rows.
+    table as ``(var, split_at, is_select_threshold)`` rows.  The rest
+    are the `Program`'s arrays as contiguous tensors on the device, the
+    integer ones as int32, which the walk kernels read.
     """
     rows: List[Tuple[int, int, Tuple[int, ...], int, int]]
     consts: List[Tuple[Optional[torch.Tensor], ...]]
@@ -544,6 +546,15 @@ class DeviceProgram:
     base_list: List[int]
     frozen: List[bool]
     split: List[Tuple[int, float, bool]]
+    # the whole op table on the device, packed for the walk kernels
+    # (`smt/csrc/smt_walk.cu`): the `Program`'s arrays of the same names
+    def_var: torch.Tensor      # (nd,) int32
+    opcode: torch.Tensor       # (nd,) int32
+    argv: torch.Tensor         # (nd, 4) int32, -1 = constant slot
+    argc: torch.Tensor         # (nd, 4) float64
+    pow_n: torch.Tensor        # (nd,) int32
+    cmp: torch.Tensor          # (nd,) int32
+    frozen_mask: torch.Tensor  # (nvars,) bool, the `Program`'s `frozen`
 
 
 def device_program(prog: Program, device) -> DeviceProgram:
@@ -561,13 +572,21 @@ def device_program(prog: Program, device) -> DeviceProgram:
                      int(prog.pow_n[k]), int(prog.cmp[k])))
         consts.append(tuple(argc[k, j] if av[j] < 0 else None
                             for j in range(_N_SLOTS)))
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
     dp = DeviceProgram(
         rows=rows, consts=consts,
         base=torch.from_numpy(prog.base.astype(np.int64)).to(device),
         base_list=[int(i) for i in prog.base],
         frozen=[bool(f) for f in prog.frozen],
         split=[(int(v), float(a), bool(sel)) for v, a, sel in
-               zip(prog.split_var, prog.split_at, prog.split_sel)])
+               zip(prog.split_var, prog.split_at, prog.split_sel)],
+        def_var=i32(prog.def_var), opcode=i32(prog.opcode),
+        argv=i32(prog.argv), argc=argc, pow_n=i32(prog.pow_n),
+        cmp=i32(prog.cmp),
+        frozen_mask=torch.from_numpy(prog.frozen.astype(bool)).to(device))
     cache[device] = dp
     return dp
 

@@ -51,6 +51,7 @@ from repro_torch.core.npops import (fmax as _fmax, fmin as _fmin,
                                     sqrt as _sqrt)
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.smt import walk
 from repro_torch.smt.encoder import (CONST, CSP, Def, DeviceProgram, Program,
                                      VAR, compile_csp, device_program,
                                      OP_ABS, OP_ADD, OP_DIV, OP_MAX, OP_MIN,
@@ -822,6 +823,11 @@ def _check_witness(csp, box, root, maximize, threshold, best):
 # branches read one device flag each,
 # as numpy's do; which boxes the frontier pops is decided on the host by
 # numpy's own `argpartition` over a host copy of the scores.
+#
+# On the card the two op-table walks, hc4 (`_hc4_rows`) and the
+# gradients (`_gradients_rows`), are one kernel launch each
+# (`smt/walk.py`, `smt/csrc/smt_walk.cu`) with the bits of their plain
+# versions (`_hc4_plain`, `_gradients_plain`), which run on the CPU.
 
 _F64 = torch.float64
 _SMALL_BATCH = 12   # below this many rows the scalar per-box path is faster
@@ -1174,6 +1180,15 @@ def hc4_batch(prog: Program, lo, hi, alive, rounds: int = 6):
 
 
 def _hc4_rows(dp: DeviceProgram, lo, hi, alive, rounds: int):
+    """hc4 over the frontier in place; returns the new alive mask.  On
+    the card one launch of the walk kernel (`smt/walk.py`), which raises
+    rather than fall back; on the CPU its plain version."""
+    if lo.device.type != "cpu":
+        return walk.hc4_walk(dp, lo, hi, alive, rounds)
+    return _hc4_plain(dp, lo, hi, alive, rounds)
+
+
+def _hc4_plain(dp: DeviceProgram, lo, hi, alive, rounds: int):
     nd = len(dp.rows)
     for _ in range(rounds):
         changed = torch.zeros(lo.shape[0], dtype=torch.bool,
@@ -1456,6 +1471,18 @@ def gradients_batch(prog: Program, lo, hi, root: int):
 
 
 def _gradients_rows(dp: DeviceProgram, nvars: int, lo, hi, root: int):
+    """(glo, ghi): the interval gradients of `root`.  On the card one
+    launch of the walk kernel (`smt/walk.py`), which raises rather than
+    fall back; on the CPU its plain version."""
+    if lo.device.type != "cpu":
+        if lo.dim() != 2 or lo.shape[1] != nvars:
+            raise ValueError(f"_gradients_rows: want {nvars} columns, got "
+                             f"{tuple(lo.shape)}")
+        return walk.grad_walk(dp, lo, hi, root)
+    return _gradients_plain(dp, nvars, lo, hi, root)
+
+
+def _gradients_plain(dp: DeviceProgram, nvars: int, lo, hi, root: int):
     N = lo.shape[0]
     dev = lo.device
     glo = torch.zeros((N, nvars), dtype=_F64, device=dev)

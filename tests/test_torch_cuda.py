@@ -813,6 +813,168 @@ def test_smt_sweeps_on_the_card_equal_the_cpu_bit_for_bit(cuda, name,
             assert np.array_equal(got, want)
 
 
+def _smt_frontier(prog, seed, n):
+    """A seeded frontier of n boxes.  Even rows are random sub-boxes of
+    the CSP's box on its base variables, so most of them live; odd rows
+    are random sub-boxes on every variable, so most of them die in
+    contraction.  Both have infinite bounds, zero bounds of both signs,
+    zero-straddling intervals and point intervals sprinkled in."""
+    rng = np.random.default_rng(seed)
+    nv = prog.nvars
+    ilo = np.broadcast_to(prog.init_lo, (n, nv))
+    ihi = np.broadcast_to(prog.init_hi, (n, nv))
+    flo = np.where(np.isfinite(ilo), ilo, -1e3)
+    fhi = np.where(np.isfinite(ihi), ihi, 1e3)
+    u = np.sort(rng.random((2, n, nv)), axis=0)
+    lo = flo + (fhi - flo) * u[0]
+    hi = flo + (fhi - flo) * u[1]
+    base = np.zeros(nv, bool)
+    base[prog.base] = True
+    wild = (np.arange(n) % 2 == 1)[:, None]
+    keep = (rng.random((n, nv)) < 0.5) | (~wild & ~base)
+    lo = np.where(keep, ilo, lo)
+    hi = np.where(keep, ihi, hi)
+    m = rng.random((n, nv))
+    lo = np.where(m < 0.04, -np.inf, lo)
+    hi = np.where((m > 0.04) & (m < 0.08), np.inf, hi)
+    zero = rng.choice([0.0, -0.0], (n, nv))
+    z = (m > 0.08) & (m < 0.12) & (wild | ((lo <= 0.0) & (hi >= 0.0)))
+    lo = np.where(z, zero, lo)
+    hi = np.where(z, np.abs(hi), hi)
+    z = (m > 0.12) & (m < 0.15) & (wild | ((lo <= 0.0) & (hi >= 0.0)))
+    hi = np.where(z, zero, hi)
+    lo = np.where(z, -np.abs(lo), lo)
+    z = (m > 0.15) & (m < 0.18)
+    lo = np.where(z, -np.abs(lo) - 1.0, lo)
+    hi = np.where(z, np.abs(hi) + 1.0, hi)
+    point = (m > 0.18) & (m < 0.22) & np.isfinite(lo) & (wild | base)
+    hi = np.where(point, lo, hi)
+    return np.ascontiguousarray(lo), np.ascontiguousarray(hi)
+
+
+def _same_f64_bits(got, want, label):
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    assert np.array_equal(np.isnan(got), np.isnan(want)), label
+    ok = ~np.isnan(want)
+    assert np.array_equal(got[ok].view(np.int64), want[ok].view(np.int64)), \
+        label
+
+
+def _smt_walks_both_ways(prog, root, lo, hi, alive, dev, rounds=6):
+    """hc4 and the gradients through the walk kernels and through their
+    plain versions, all on the card; no host sync in the kernels' calls."""
+    from repro_torch.smt import encoder as E
+    from repro_torch.smt import solver as S
+    dp = E.device_program(prog, dev)
+    out = {}
+    for way in ("kernel", "plain"):
+        tlo, thi = (torch.from_numpy(lo).to(dev),
+                    torch.from_numpy(hi).to(dev))
+        a = torch.from_numpy(alive).to(dev)
+        if way == "kernel":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                a2 = S._hc4_rows(dp, tlo, thi, a, rounds)
+                g = S._gradients_rows(dp, prog.nvars, tlo, thi, root)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        else:
+            a2 = S._hc4_plain(dp, tlo, thi, a, rounds)
+            g = S._gradients_plain(dp, prog.nvars, tlo, thi, root)
+        torch.cuda.synchronize()
+        out[way] = (a2, tlo, thi) + tuple(g)
+    return out
+
+
+@pytest.mark.parametrize("n", [12, 100, 512, 4096])
+@pytest.mark.parametrize("name,stage", SMT_STAGES,
+                         ids=[f"{n}-{s}" for n, s in SMT_STAGES])
+def test_smt_walk_kernels_equal_their_plain_versions(cuda, name, stage, n):
+    """`smt_hc4` and `smt_grad` against `_hc4_plain` and
+    `_gradients_plain` on the card, every row (dead ones included) and
+    every bit, the sign of a zero too; the gradients over the frontier
+    hc4 left."""
+    from repro_torch.smt import encoder as E
+    entries, _ = _smt_entries(_smt_pipe(name), stage)
+    csp, root = entries[0]
+    prog = E.compile_csp(csp)
+    lo, hi = _smt_frontier(prog, n, n)
+    alive = np.random.default_rng(n + 1).random(n) < 0.9
+    out = _smt_walks_both_ways(prog, root, lo, hi, alive, cuda)
+    got, want = out["kernel"], out["plain"]
+    assert torch.equal(got[0], want[0])
+    assert int(want[0].sum()) < n                 # dead rows present
+    for label, g, w in zip(("lo", "hi", "glo", "ghi"), got[1:], want[1:]):
+        _same_f64_bits(g, w, label)
+
+
+def test_smt_walk_kernels_take_torch_pow_on_the_card(cuda):
+    """x ** n for n = 3, 4, 5 and odd and even roots (no benchmark has
+    them): the kernels compute them as the plain version does on the
+    card, through torch's `pow`."""
+    from repro_torch.core.interval import Interval
+    from repro_torch.smt import encoder as E
+    csp = E.CSP()
+    x = csp.new_var("x", Interval(-4.0, 5.0), "input")
+    y = csp.new_var("y", Interval(0.5, 3.0), "input")
+    ops = [csp.new_var(f"p{n}", Interval(-1e4, 1e4), "aux",
+                       E.Def("pow", ((E.VAR, v),), n=n))
+           for n in (3, 4, 5) for v in (x, y)]
+    s = csp.new_var("s", Interval(-1e5, 1e5), "aux",
+                    E.Def("+", ((E.VAR, ops[0]), (E.VAR, ops[3]))))
+    root = csp.new_var("r", Interval(-1e5, 1e5), "aux",
+                       E.Def("*", ((E.VAR, s), (E.VAR, ops[5]))))
+    prog = E.compile_csp(csp)
+    lo, hi = _smt_frontier(prog, 3, 512)
+    out = _smt_walks_both_ways(prog, root, lo, hi,
+                               np.ones(512, bool), cuda)
+    for label, g, w in zip(("alive", "lo", "hi", "glo", "ghi"),
+                           out["kernel"], out["plain"]):
+        if g.dtype == torch.bool:
+            assert torch.equal(g, w)
+        else:
+            _same_f64_bits(g, w, label)
+
+
+def test_smt_walks_launch_once_a_call(cuda, monkeypatch):
+    """Counts from 0: one `smt_hc4` launch a `_hc4_rows` call and one
+    `smt_grad` launch a `_gradients_rows` call, alone and through a
+    `decide_multi` run on the card."""
+    from repro_torch.smt import encoder as E
+    from repro_torch.smt import solver as S
+    from repro_torch.smt import walk as W
+    entries, seed = _smt_entries(_smt_pipe("hcd"), "trace")
+    csp, root = entries[0]
+    prog = E.compile_csp(csp)
+    lo, hi = _smt_frontier(prog, 0, 64)
+    dp = E.device_program(prog, cuda)
+    tlo, thi = torch.from_numpy(lo).to(cuda), torch.from_numpy(hi).to(cuda)
+    W.LAUNCHES.update(smt_hc4=0, smt_grad=0)
+    S._hc4_rows(dp, tlo, thi, torch.ones(64, dtype=torch.bool, device=cuda),
+                6)
+    assert W.LAUNCHES == {"smt_hc4": 1, "smt_grad": 0}
+    S._gradients_rows(dp, prog.nvars, tlo, thi, root)
+    assert W.LAUNCHES == {"smt_hc4": 1, "smt_grad": 1}
+    calls = {"smt_hc4": 0, "smt_grad": 0}
+
+    def counted(name, fn):
+        def call(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return call
+
+    monkeypatch.setattr(S, "_hc4_rows", counted("smt_hc4", S._hc4_rows))
+    monkeypatch.setattr(S, "_gradients_rows",
+                        counted("smt_grad", S._gradients_rows))
+    W.LAUNCHES.update(smt_hc4=0, smt_grad=0)
+    S.decide_multi(entries, "ge", seed.hi * 0.5, S.BPBudget(256, 6),
+                   device=cuda)
+    torch.cuda.synchronize()
+    assert calls["smt_hc4"] > 0 and calls["smt_grad"] > 0
+    assert W.LAUNCHES == calls
+
+
 @pytest.mark.parametrize("name", ["usm", "dus", "dus_ext"])
 def test_smt_designs_kernel_equals_plain_version(cuda, name):
     """The SMT column's design (and the phase-split one, whose residue
@@ -1089,7 +1251,8 @@ def _lm(arch, kv="bf16"):
     return cfg, m, params
 
 
-def _to(tree, dev):
+def _tree_to(tree, dev):
+    """A pytree of tensors on `dev` (`_to` moves numpy images)."""
     from repro_torch.models.common import tree_map
     return tree_map(lambda t: t.to(dev), tree)
 
@@ -1113,10 +1276,10 @@ def test_lm_forward_and_decode_on_the_card_equal_the_cpu(cuda, arch, kv):
     within one bf16 unit (int8 codes within one step)."""
     from repro_torch.data.batches import make_batch
     cfg, m, params = _lm(arch, kv)
-    gp = _to(params, cuda)
+    gp = _tree_to(params, cuda)
     batch = make_batch(cfg, 2, 16, seed=4, device="cpu")
-    _close_logits(m.forward(gp, _to(batch, cuda)), m.forward(params, batch),
-                  LM_ATOL)
+    _close_logits(m.forward(gp, _tree_to(batch, cuda)),
+                  m.forward(params, batch), LM_ATOL)
     s_cpu = m.init_decode_state(2, 16, device="cpu")
     s_gpu = m.init_decode_state(2, 16, device=cuda)
     for t in range(4):
@@ -1135,7 +1298,7 @@ def test_lm_prefill_on_the_card_equals_stepwise_decode(cuda):
     """The reference test's check on the card: atol 0.15 / rtol 0.05, the
     next token's argmax equal after one more step from either state."""
     cfg, m, params = _lm("qwen3-4b")
-    gp = _to(params, cuda)
+    gp = _tree_to(params, cuda)
     from repro_torch.serve.prefill import prefill
     toks = torch.from_numpy(np.random.default_rng(4).integers(
         0, cfg.vocab_size, (1, 8)).astype(np.int32)).to(cuda)
@@ -1161,7 +1324,7 @@ def test_lm_batcher_tokens_on_the_card_equal_the_cpu(cuda, kv):
     prompts = [list(rng.integers(0, cfg.vocab_size, size=4))
                for _ in range(4)]
     out = []
-    for p in (params, _to(params, cuda)):
+    for p in (params, _tree_to(params, cuda)):
         reqs = [Request(i, q, 8) for i, q in enumerate(prompts)]
         assert serve_requests(ContinuousBatcher(m, p, 2, 64), reqs) == 22
         out.append([r.generated for r in reqs])
@@ -1178,7 +1341,7 @@ def test_lm_fake_quant_params_on_the_card_equal_the_cpu(cuda, bits):
     _, _, params = _lm("qwen3-4b")
     chosen = {c: bits for c in REVERSE_TOPO_CLASSES}
     want = dict(tree_items(fake_quant_params(params, chosen)))
-    got = dict(tree_items(fake_quant_params(_to(params, cuda), chosen)))
+    got = dict(tree_items(fake_quant_params(_tree_to(params, cuda), chosen)))
     assert set(got) == set(want)
     for k, v in want.items():
         assert got[k].is_cuda and torch.equal(got[k].cpu(), v), k
@@ -1191,7 +1354,7 @@ def test_lm_graphed_decode_step_equals_the_plain_step(cuda, kv):
     state and from a state handed in again."""
     from repro_torch.launch.serve import GraphedDecodeStep
     cfg, m, params = _lm("qwen3-4b", kv)
-    gp = _to(params, cuda)
+    gp = _tree_to(params, cuda)
     step = GraphedDecodeStep(m.decode_step)
     s_plain = m.init_decode_state(2, 16, device=cuda)
     s_graph = m.init_decode_state(2, 16, device=cuda)

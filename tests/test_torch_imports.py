@@ -42,13 +42,15 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.dse, repro_torch.core.cost_model, "
             "repro_torch.core.beta_search, repro_torch.pipelines.data, "
             "repro_torch.pipelines.metrics, repro_torch.smt, "
-            "repro_torch.smt.solver, repro_torch.core.npops, "
+            "repro_torch.smt.solver, repro_torch.smt.walk, "
+            "repro_torch.core.npops, "
             "repro_torch.obs.exporters, repro_torch.obs.runtime, "
             "repro_torch.obs.report, repro_torch.pipelines.workflows, "
             "repro_torch.benchmarks.paper_tables, "
             "repro_torch.benchmarks.alpha_delta, "
             "repro_torch.benchmarks.executor_overhead, "
             "repro_torch.benchmarks.band_times, "
+            "repro_torch.benchmarks.smt_throughput, "
             "repro_torch.examples.quickstart, "
             "repro_torch.examples.analyze_pipeline, repro_torch.launch, "
             "repro_torch.lowering.sharded, repro_torch.core.xla_f32, "
@@ -75,7 +77,7 @@ def test_the_benchmarks_and_examples_subpackages_are_checked():
     port = ROOT / "src" / "repro_torch"
     assert {p.name for p in PORT_FILES if p.parent == port / "benchmarks"} \
         == {"__init__.py", "alpha_delta.py", "band_times.py",
-            "executor_overhead.py", "paper_tables.py"}
+            "executor_overhead.py", "paper_tables.py", "smt_throughput.py"}
     assert {p.name for p in PORT_FILES if p.parent == port / "examples"} \
         == {"__init__.py", "analyze_pipeline.py", "quickstart.py",
             "serve_quantized.py"}
@@ -134,7 +136,7 @@ def test_the_lm_subpackages_are_checked():
 def test_the_smt_subpackage_is_checked():
     assert {p.name for p in PORT_FILES if p.parent.name == "smt"} == \
         {"__init__.py", "domain.py", "encoder.py", "optimize.py",
-         "solver.py"}
+         "solver.py", "walk.py"}
 
 
 def test_the_dse_subpackage_is_checked():

@@ -149,7 +149,25 @@ Phases (any failure raises, and the exit code is not 0):
    equal to one card's; the f32 walk (``backend="f32"``) on hcd at
    1080x1920 on the card equal to the host CPU's; the phase's seconds
    (held under 30 s);
-10. print the seconds phases 1-9 took, a `{"kernels": [...]}` line, the
+10. LM serving: qwen3-4b at full width with seeded random weights (the
+   port's dense decoder; no kernel of the port on this path): 8
+   requests of 4-token prompts on 4 slots through `ContinuousBatcher`
+   and its CUDA graph of the decode step, bf16 and int8 KV (steps/s,
+   tokens/s, the step's ms graphed and plain beside its bytes bound,
+   peak memory, a traced step); a 128-token fused prefill against 128
+   decode steps; the card against the host CPU at 2 layers (forward
+   and 4 decode steps); 8-bit weights served and AutoQuant; held under
+   60 s;
+11. MoE serving: qwen2-moe-a2.7b at full width with seeded random
+   weights (`models/moe.py`, no kernel of the port on this path): the
+   same 8 requests on 4 slots through the batcher's graphed step, bf16
+   KV (steps/s, tokens/s, the graphed and plain step's ms beside the
+   bytes bound, peak memory, a traced step); a 128-token fused prefill
+   on the card and on the host CPU, within phase 10's tolerance; the
+   card against the host CPU at 2 layers (forward and 4 decode steps),
+   with the share of tokens routed to the same experts on both; held
+   under 120 s;
+12. print the seconds phases 1-11 took, a `{"kernels": [...]}` line, the
    card's name and power limit, and, last, `{"ok": true, "device":
    {...}}`.
 
@@ -2594,11 +2612,12 @@ def lm_step_ms(bundle, params, dev, reps: int = 5) -> dict:
     return out
 
 
-def lm_step_trace(bundle, params, dev, card, steps: int = 3) -> dict:
+def lm_step_trace(bundle, params, dev, card, steps: int = 3,
+                  name: str = "lm") -> dict:
     """`steps` graphed decode steps at 4 slots (the batcher's) under
     `torch.profiler`: the window's wall time a step, the device's busy
     share, kernels a step and the five kernels that take the most device
-    time (trace in `chiprun_out/lm_decode_trace.json`)."""
+    time (trace in `chiprun_out/<name>_decode_trace.json`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -2616,7 +2635,7 @@ def lm_step_trace(bundle, params, dev, card, steps: int = 3) -> dict:
             torch.cuda.synchronize(dev)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    path = out_dir / "lm_decode_trace.json"
+    path = out_dir / f"{name}_decode_trace.json"
     prof.export_chrome_trace(str(path))
     spans = [e for e in json.loads(path.read_text())["traceEvents"]
              if e.get("ph") == "X"]
@@ -2626,7 +2645,7 @@ def lm_step_trace(bundle, params, dev, card, steps: int = 3) -> dict:
     kernels = [e for e in spans if e.get("cat") == "kernel"
                and win[0] <= e["ts"] <= win[1]]
     if not kernels:
-        print(f"lm decode trace ({card}): the profiler recorded no device "
+        print(f"{name} decode trace ({card}): the profiler recorded no device "
               f"events; busy share not measured", flush=True)
         return {}
     by_name: dict = {}
@@ -2638,7 +2657,7 @@ def lm_step_trace(bundle, params, dev, card, steps: int = 3) -> dict:
     res = {"wall_ms": wall / steps, "busy_ms": busy / steps,
            "busy_share": busy / wall, "launches": len(kernels) / steps,
            "top_ms": {k[:80]: v / steps for k, v in top}}
-    print(f"lm decode trace ({card}): a step {res['wall_ms']:.3f} ms of "
+    print(f"{name} decode trace ({card}): a step {res['wall_ms']:.3f} ms of "
           f"wall time, device busy {res['busy_ms']:.3f} ms "
           f"({100 * res['busy_share']:.2f}%), {res['launches']:.0f} "
           f"kernels; most device time a step: "
@@ -2648,7 +2667,8 @@ def lm_step_trace(bundle, params, dev, card, steps: int = 3) -> dict:
 
 
 def lm_serving(dev, card) -> dict:
-    """Phase 10: qwen3-4b at full width on the card (docstring item 10)."""
+    """Phase 10: qwen3-4b at full width on the card (docstring item
+    10)."""
     import dataclasses
 
     import numpy as np
@@ -2800,6 +2820,210 @@ def lm_serving(dev, card) -> dict:
     return out
 
 
+# phase 11: qwen2-moe-a2.7b served at full width
+# (src/repro/configs/qwen2_moe_a2_7b.py)
+MOE_PHASE_LIMIT_S = 120.0
+
+
+def with_routes(fn):
+    """fn() with the experts each MoE layer picks recorded: the result
+    and one (tokens, k) tensor of sorted expert ids a layer call, on the
+    host."""
+    from repro_torch.models import blocks, moe
+    seen = []
+    orig = blocks.moe_ffn
+
+    def spy(x, p, cfg):
+        _, _, top_e = moe.route(x.reshape(-1, x.shape[-1]), p["router"],
+                                cfg)
+        seen.append(top_e.sort(-1).values.cpu())
+        return orig(x, p, cfg)
+    blocks.moe_ffn = spy
+    try:
+        return fn(), seen
+    finally:
+        blocks.moe_ffn = orig
+
+
+def routes_alike(a, b):
+    """Per layer call and token, whether the token's expert set is the
+    same in both records: (layer calls, tokens) booleans."""
+    import torch
+    return torch.stack([(x == y).all(-1) for x, y in zip(a, b)])
+
+
+def host_copy(params):
+    """The parameters on the host: each matrix in bf16, the values every
+    use of it rounds to first (`common.matmul_f32`, `moe._bmm_f32`, the
+    embedding gather), so the CPU computes what it would from the f32
+    store; the norm weights, read in f32, in f32."""
+    import torch
+
+    from repro_torch.models.common import tree_map
+
+    def leaf(path, t):
+        norm = path[-1].startswith("ln_") or "norm" in path[-1]
+        return t.cpu() if norm else t.to(torch.bfloat16).cpu()
+    return tree_map(leaf, params, with_path=True)
+
+
+def moe_close(label, got, want, clean) -> tuple:
+    """`lm_close` on every token, or, where that fails and some tokens
+    saw other routes on the card than on the host, on the `clean` ones
+    (routed alike, and so was every token before them in their
+    sequence, whose keys and values they read); the failure stands if
+    those differ too.  The largest difference and the tokens left
+    out."""
+    try:
+        return lm_close(label, got, want), 0
+    except AssertionError:
+        if bool(clean.all()):
+            raise
+    return (lm_close(f"{label} (tokens routed alike)", got[clean.to(
+        got.device)], want[clean.to(want.device)]), int((~clean).sum()))
+
+
+def moe_serving(dev, card) -> dict:
+    """Phase 11: qwen2-moe-a2.7b at full width on the card (docstring
+    item 11)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.batches import make_batch
+    from repro_torch.models.common import tree_items, tree_map
+    from repro_torch.models.moe import capacity
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.prefill import prefill
+    free_card()
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2-moe-a2.7b")
+    bundle = get_model(cfg)
+    params = bundle.init_params(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    bound_ms = lm_decode_bytes(cfg) / HBM_BYTES_PER_S * 1e3
+    print(f"moe ({card}): qwen2-moe-a2.7b, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k} of "
+          f"d_ff {cfg.moe_d_ff} and a shared expert of {cfg.shared_expert_d_ff}, "
+          f"vocab {cfg.vocab_padded}, {n_params / 1e9:.3f} G parameters in "
+          f"f32 on the card ({torch.cuda.memory_allocated(dev) / 1e9:.2f} "
+          f"GB); a decode step's bytes bound {bound_ms:.3f} ms", flush=True)
+    out = {"params": n_params, "bound_ms": bound_ms, "part_s": {}}
+    t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        out["part_s"][name] = now - t_part
+        t_part = now
+
+    # (a) 8 requests, 4 slots, bf16 KV, through the batcher's graphed step
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(0, cfg.vocab_size, size=4))
+               for _ in range(8)]
+    r = lm_serve_timed(bundle, params, prompts, dev)
+    r.update(lm_step_ms(bundle, params, dev))
+    r["trace"] = lm_step_trace(bundle, params, dev, card, name="moe")
+    r.pop("generated")
+    out["serve_bf16"] = r
+    print(f"moe ({card}): served 8 requests, bf16 KV: {r['steps']} decode "
+          f"steps in {r['seconds']:.3f} s, {r['steps_per_s']:.2f} steps/s, "
+          f"{r['tokens_per_s']:.2f} tokens/s; a step between CUDA events: "
+          f"graphed {r['graph_ms']:.3f} ms ({r['graph_ms'] / bound_ms:.2f}x "
+          f"the bound), plain {r['eager_ms']:.3f} ms; peak "
+          f"{r['peak_gb']:.2f} GB", flush=True)
+    part("a")
+
+    # (b) fused prefill of 128 tokens on the card and on the host CPU
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, 128)).astype(np.int32))
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    (pf_gpu, _), r_gpu = with_routes(
+        lambda: prefill(params, toks.to(dev), cfg, 136))
+    torch.cuda.synchronize(dev)
+    out["prefill_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params_cpu = host_copy(params)
+    out["to_host_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (pf_cpu, _), r_cpu = with_routes(
+        lambda: prefill(params_cpu, toks, cfg, 136))
+    out["prefill_cpu_s"] = time.perf_counter() - t0
+    alike = routes_alike(r_gpu, r_cpu)
+    out["prefill_routes_alike"] = {
+        "token_layers": float(alike.float().mean()),
+        "tokens_all_layers": float(alike.all(0).float().mean())}
+    out["prefill_max_diff"] = lm_close("moe prefill, card vs host CPU",
+                                       pf_gpu, pf_cpu)
+    print(f"moe ({card}): fused prefill of 128 tokens (capacity "
+          f"{capacity(cfg, 128)} an expert), card "
+          f"{out['prefill_s']:.3f} s, host CPU {out['prefill_cpu_s']:.2f} s "
+          f"(weights copied to the host in {out['to_host_s']:.2f} s); "
+          f"routed alike: {out['prefill_routes_alike']} (token-layers, "
+          f"tokens in all {cfg.n_layers} layers); largest next-token "
+          f"logit difference {out['prefill_max_diff']:.5f}", flush=True)
+    part("b")
+
+    # (c) the card against the host CPU, 2 layers, the same weights
+    cut = dataclasses.replace(cfg, n_layers=2)
+    m = get_model(cut)
+    p2 = dict(params, blocks=tree_map(lambda t: t[:2], params["blocks"]))
+    p2_cpu = dict(params_cpu,
+                  blocks=tree_map(lambda t: t[:2], params_cpu["blocks"]))
+    batch = make_batch(cut, 2, 16, seed=2, device="cpu")
+    t0 = time.perf_counter()
+    got, r_gpu = with_routes(lambda: m.forward(p2, tree_map(
+        lambda t: t.to(dev), batch)))
+    want, r_cpu = with_routes(lambda: m.forward(p2_cpu, batch))
+    alike = [routes_alike(r_gpu, r_cpu)]
+    routed = alike[0].all(0).reshape(2, 16)
+    clean = routed.int().cumprod(1).bool()
+    diffs, left_out = {}, {}
+    diffs["forward"], left_out["forward"] = moe_close(
+        "moe forward, card vs host CPU", got, want, clean)
+    s_gpu = m.init_decode_state(2, 16, device=dev)
+    s_cpu = m.init_decode_state(2, 16, device="cpu")
+    d, n = 0.0, 0
+    clean = torch.ones(2, dtype=torch.bool)
+    for t in range(4):
+        tok = batch["tokens"][:, t]
+        (got, s_gpu), r_gpu = with_routes(
+            lambda: m.decode_step(p2, tok.to(dev), s_gpu))
+        (want, s_cpu), r_cpu = with_routes(
+            lambda: m.decode_step(p2_cpu, tok, s_cpu))
+        alike.append(routes_alike(r_gpu, r_cpu))
+        clean &= alike[-1].all(0)
+        dt, nt = moe_close(f"moe decode step {t}, card vs host CPU", got,
+                           want, clean)
+        d, n = max(d, dt), n + nt
+    diffs["decode_bf16"], left_out["decode_bf16"] = d, n
+    out["card_vs_cpu"] = diffs
+    out["card_vs_cpu_left_out"] = left_out
+    alike = torch.cat(alike, dim=1)
+    out["routes_alike"] = {
+        "by_layer": [float(a) for a in alike.float().mean(1)],
+        "tokens_both_layers": float(alike.all(0).float().mean())}
+    out["card_vs_cpu_s"] = time.perf_counter() - t0
+    print(f"moe ({card}): 2 layers at full width, card against host CPU: "
+          f"routed alike {out['routes_alike']} (forward 32 tokens and 4 "
+          f"decode steps of 2); largest logit differences {diffs}, tokens "
+          f"left out {left_out} ({out['card_vs_cpu_s']:.2f} s)", flush=True)
+    del p2, p2_cpu, params_cpu, params, s_gpu
+    free_card()
+    part("c")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"moe phase ({card}): {out['phase_s']:.2f} s (parts: "
+          + ", ".join(f"({k}) {v:.2f} s" for k, v in out["part_s"].items())
+          + ")", flush=True)
+    assert out["phase_s"] < MOE_PHASE_LIMIT_S, \
+        f"phase 11 took {out['phase_s']:.1f} s, over {MOE_PHASE_LIMIT_S} s"
+    print(json.dumps({"moe_serving": out}), flush=True)
+    return out
+
+
 def smt_walk_rows(smt) -> list:
     """The walk kernels' entries of the kernels line: launches from phase
     7 (a), the rest at the engine's batch, `SMT_WALK_MAIN_N` boxes."""
@@ -2926,8 +3150,11 @@ def main() -> int:
     # -- 10. LM serving ------------------------------------------------------
     lm_serving(dev, card)
 
-    # -- 11. result lines --------------------------------------------------
-    print(f"chip_smoke: phases 1-10 in {time.perf_counter() - t_script:.2f} s "
+    # -- 11. MoE serving -----------------------------------------------------
+    moe_serving(dev, card)
+
+    # -- 12. result lines --------------------------------------------------
+    print(f"chip_smoke: phases 1-11 in {time.perf_counter() - t_script:.2f} s "
           f"({card})", flush=True)
     usm_t = band["usm"]
     print(json.dumps({"kernels": [{

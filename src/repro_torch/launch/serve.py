@@ -48,10 +48,11 @@ class GraphedDecodeStep:
     launches one graph a step instead of some four thousand kernels.
 
     The first call captures the step for its parameters and its state's
-    shapes; every call returns ``(logits, state)`` where both are the
-    graph's own buffers: the state is advanced in place, and the logits
-    are overwritten by the next call.  A state other than the returned
-    one is copied in first."""
+    shapes; a later call with other parameters raises `ValueError` (the
+    graph reads the captured tensors).  Every call returns ``(logits,
+    state)`` where both are the graph's own buffers: the state is
+    advanced in place, and the logits are overwritten by the next call.
+    A state other than the returned one is copied in first."""
 
     def __init__(self, decode_step):
         self.decode_step = decode_step
@@ -84,7 +85,9 @@ class GraphedDecodeStep:
         if self.graph is None:
             self._capture(params, token, state)
         else:
-            assert params is self.params, "captured for other parameters"
+            if params is not self.params:
+                raise ValueError("GraphedDecodeStep: the graph was captured "
+                                 "for other parameters")
             if state is not self.state:
                 for k, v in state.items():
                     self.state[k].copy_(v)

@@ -1,2 +1,2 @@
-"""The dense transformer LM (port of `repro.models`: `common`,
-`attention`, `blocks`, `lm`, `registry`)."""
+"""The transformer LM, dense and MoE (port of `repro.models`: `common`,
+`attention`, `moe`, `blocks`, `lm`, `registry`)."""

@@ -1,8 +1,8 @@
-"""Per-layer blocks: the dense transformer.
+"""Per-layer blocks: the dense and MoE transformer.
 
-The port's own copy of `repro.models.blocks`, its dense transformer block.
-The MoE feed-forward, RWKV6 and Mamba2 blocks come with later slices
-(ROADMAP Queue 1 items 5b and 5d).  Every block type provides
+The port's own copy of `repro.models.blocks`, its transformer block with
+the dense or the MoE feed-forward.  The RWKV6 and Mamba2 blocks come
+with a later slice (ROADMAP Queue 1 item 5d).  Every block type provides
   * `<kind>_specs(cfg, stacked)` — ParamSpec tree (stacked on the layer axis)
   * `<kind>_fwd(x, p, cfg, ...)` — full-sequence forward (train / prefill)
   * `<kind>_step(x, p, cfg, state)` — one-token decode with carried state
@@ -17,30 +17,27 @@ from repro_torch.models.attention import (KVCache, _attend_decode_into,
                                           attend_train, attn_param_specs)
 from repro_torch.models.common import (ModelConfig, ParamSpec, _scalar,
                                        rms_norm, swiglu)
-
-
-def _no_moe(cfg: ModelConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE feed-forward is not ported yet (ROADMAP "
-            f"Queue 1 item 5b)")
+from repro_torch.models.moe import moe_ffn, moe_param_specs
 
 
 def transformer_specs(cfg: ModelConfig, stacked: int | None) -> Dict:
-    _no_moe(cfg)
     D, F = cfg.d_model, cfg.d_ff
     L = (stacked,) if stacked else ()
     Lx = ("layers",) if stacked else ()
-    return {
+    specs = {
         "ln_attn": ParamSpec(L + (D,), Lx + ("embed",), init="ones"),
         "ln_mlp": ParamSpec(L + (D,), Lx + ("embed",), init="ones"),
         "attn": attn_param_specs(cfg, stacked),
-        "mlp": {
+    }
+    if cfg.is_moe:
+        specs["moe"] = moe_param_specs(cfg, stacked)
+    else:
+        specs["mlp"] = {
             "w_gate": ParamSpec(L + (D, F), Lx + ("embed", "mlp")),
             "w_up": ParamSpec(L + (D, F), Lx + ("embed", "mlp")),
             "w_down": ParamSpec(L + (F, D), Lx + ("mlp", "embed")),
-        },
-    }
+        }
+    return specs
 
 
 def _residual(x: torch.Tensor, h: torch.Tensor,
@@ -56,10 +53,14 @@ def _residual(x: torch.Tensor, h: torch.Tensor,
 
 
 def _mlp_residual(x, p, cfg: ModelConfig) -> torch.Tensor:
-    """x (the unrounded f32 sum after attention) + the MLP's output, bf16."""
-    _no_moe(cfg)
+    """x (the unrounded f32 sum after attention) + the feed-forward's
+    output (dense or MoE), bf16."""
     hin = rms_norm(x, p["ln_mlp"], cfg.norm_eps, dtype=torch.bfloat16)
-    h = swiglu(hin, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    if cfg.is_moe:
+        h = moe_ffn(hin, p["moe"], cfg)
+    else:
+        h = swiglu(hin, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                   p["mlp"]["w_down"])
     return _residual(x.to(torch.bfloat16), h, cfg).to(torch.bfloat16)
 
 

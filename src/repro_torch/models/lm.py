@@ -1,10 +1,10 @@
 """Decoder LM assembly: embed -> stacked blocks -> norm -> unembed.
 
-The port's own copy of `repro.models.lm`, its dense branches.  The
-reference consumes the layer-stacked parameters with `jax.lax.scan`; the
-port loops over the layer axis, one block at a time.  The VLM prefix,
-MoE, RWKV6 and the Mamba2 hybrid come with later slices
-(`_dense_only` names the ROADMAP item of each).
+The port's own copy of `repro.models.lm`, its dense and MoE branches.
+The reference consumes the layer-stacked parameters with
+`jax.lax.scan`; the port loops over the layer axis, one block at a time.
+The VLM prefix, RWKV6 and the Mamba2 hybrid come with later slices
+(`_transformer_only` names the ROADMAP item of each).
 """
 from __future__ import annotations
 
@@ -22,7 +22,6 @@ from repro_torch.models.common import (ModelConfig, ParamSpec, _scalar,
 
 # the ROADMAP Queue 1 item that ports each architecture class not ported yet
 NOT_PORTED = {
-    "moe": "5b (MoE and VLM serving)",
     "vlm": "5b (MoE and VLM serving)",
     "encdec": "5c (encoder-decoder)",
     "rwkv": "5d (rwkv and mamba)",
@@ -30,12 +29,13 @@ NOT_PORTED = {
 }
 
 
-def _dense_only(cfg: ModelConfig) -> None:
+def _transformer_only(cfg: ModelConfig) -> None:
+    """The dense and MoE classes pass; the others raise."""
     if cfg.arch_class in NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: arch_class {cfg.arch_class!r} is not ported yet "
             f"(ROADMAP Queue 1 item {NOT_PORTED[cfg.arch_class]})")
-    if cfg.arch_class != "dense":
+    if cfg.arch_class not in ("dense", "moe"):
         raise ValueError(cfg.arch_class)
 
 
@@ -45,7 +45,7 @@ def _dense_only(cfg: ModelConfig) -> None:
 
 
 def param_specs(cfg: ModelConfig) -> Dict:
-    _dense_only(cfg)
+    _transformer_only(cfg)
     D, Vp, L = cfg.d_model, cfg.vocab_padded, cfg.n_layers
     specs: Dict[str, Any] = {
         "embed": ParamSpec((Vp, D), ("vocab", "embed")),
@@ -85,7 +85,7 @@ def _embed(params, tokens, cfg: ModelConfig) -> torch.Tensor:
 
 def _run_blocks(params, x, cfg: ModelConfig) -> torch.Tensor:
     """The layer stack on an embedded stream x (B, S, D)."""
-    _dense_only(cfg)
+    _transformer_only(cfg)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     rope = rope_tables(positions, cfg.hd, cfg.rope_theta)
@@ -162,7 +162,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       prefill_len: int = 0, device=None) -> Dict:
     """State for one-token decode on `device` (None: the card).
     `prefill_len` marks the cache as already holding that many tokens."""
-    _dense_only(cfg)
+    _transformer_only(cfg)
     dev = resolve_device(device)
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
     length = torch.tensor(prefill_len, dtype=torch.int32, device=dev)
@@ -191,7 +191,7 @@ def decode_step(params, token, state: Dict, cfg: ModelConfig
     """token (B,) int -> (logits (B, vocab_padded) f32, new state).
 
     `state` is left as it was: the new state's caches are copies."""
-    _dense_only(cfg)
+    _transformer_only(cfg)
     x = _embed(params, token[:, None], cfg)
     length = state["length"]
     new_state = {k: v.clone() for k, v in state.items() if k != "length"}

@@ -1,7 +1,8 @@
 """Uniform model interface (port of `repro.models.registry`).
 
-`get_model` builds the dense decoder; the other architecture classes
-raise `NotImplementedError` naming the ROADMAP item that ports them.
+`get_model` builds the dense and the MoE decoder; the other
+architecture classes raise `NotImplementedError` naming the ROADMAP item
+that ports them.
 `params_from_numpy` carries parameters (or a decode state) made by the
 JAX package, as numpy arrays in the same nested dict, into the port.
 """
@@ -32,7 +33,7 @@ class ModelBundle:
 
 
 def get_model(cfg: ModelConfig) -> ModelBundle:
-    lm._dense_only(cfg)
+    lm._transformer_only(cfg)
     return ModelBundle(
         cfg=cfg,
         param_specs=lambda: lm.param_specs(cfg),

@@ -1,10 +1,10 @@
 """Fused prefill: populate a decode state from a whole prompt in one pass.
 
-The port's own copy of `repro.serve.prefill`, its dense path.  The
-continuous batcher's slot-local fallback feeds prompts token-by-token
-(correct, O(prompt) decode steps); production serving prefills the KV
-cache with one full-sequence forward.  The recurrent archs' prefill comes
-with the rwkv slice.
+The port's own copy of `repro.serve.prefill`, its transformer path
+(dense and MoE).  The continuous batcher's slot-local fallback feeds
+prompts token-by-token (correct, O(prompt) decode steps); production
+serving prefills the KV cache with one full-sequence forward.  The
+recurrent archs' prefill comes with the rwkv slice.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ def prefill_dense(params, tokens, cfg: ModelConfig, max_len: int
     """
     assert cfg.arch_class in ("dense", "moe", "vlm")
     assert cfg.kv_cache_dtype == "bf16", "int8 prefill: quantize post-hoc"
-    lm._dense_only(cfg)
+    lm._transformer_only(cfg)
     Bsz, S = tokens.shape
     x = lm._embed(params, tokens, cfg)
     positions = torch.arange(S, device=x.device)[None, :]

@@ -1368,3 +1368,93 @@ def test_lm_graphed_decode_step_equals_the_plain_step(cuda, kv):
     got, _ = step(gp, toks[0], fresh)
     want, _ = m.decode_step(gp, toks[0], fresh)
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the MoE feed-forward and the MoE decoders: the card against the CPU
+# ---------------------------------------------------------------------------
+
+# two bf16 units at the largest output: the card's softmax rounds a
+# router weight to another bf16 value now and then, and each output is
+# rounded to bf16 after a sum over k of f32 products
+MOE_RTOL_OF_MAX = 2.0 ** -6
+
+
+def _moe_layer(cfg, seed):
+    """One layer's MoE parameters (not stacked), drawn as `init_params`
+    draws them, on the CPU."""
+    from repro_torch.models.common import init_tree
+    from repro_torch.models.moe import moe_param_specs
+    return init_tree(torch.Generator().manual_seed(seed),
+                     moe_param_specs(cfg))
+
+
+@pytest.mark.parametrize("arch,tokens", [
+    ("qwen2-moe-a2.7b", (2, 16)), ("mixtral-8x7b", (2, 16)),
+    ("qwen2-moe-a2.7b-full", (4, 1)), ("qwen2-moe-a2.7b-full", (1, 128))])
+def test_moe_ffn_on_the_card_equals_the_cpu(cuda, arch, tokens):
+    """cuBLAS's bf16 expert products summed in f32 against the CPU's:
+    tokens routed to the same experts on both (at least 95% of them)
+    give outputs within MOE_RTOL_OF_MAX of the largest output; the
+    smoke configs and qwen2-moe's full width at decode (4 tokens) and
+    prefill (128) sizes."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import moe
+    name = arch.removesuffix("-full")
+    cfg = get_config(name) if arch.endswith("-full") else \
+        get_smoke_config(name)
+    p = _moe_layer(cfg, 3)
+    gp = _tree_to(p, cuda)
+    x = torch.randn(tokens + (cfg.d_model,), generator=torch.Generator(
+        ).manual_seed(4)).to(torch.bfloat16)
+    want = moe.moe_ffn(x, p, cfg)
+    got = moe.moe_ffn(x.to(cuda), gp, cfg)
+    assert got.is_cuda and got.dtype == torch.bfloat16
+    xt = x.reshape(-1, cfg.d_model)
+    _, _, e_cpu = moe.route(xt, p["router"], cfg)
+    _, _, e_gpu = moe.route(xt.to(cuda), gp["router"], cfg)
+    same = (e_gpu.cpu() == e_cpu).all(-1)
+    assert same.float().mean() >= 0.95, float(same.float().mean())
+    diff = (got.cpu().float() - want.float()).abs().reshape(-1, cfg.d_model)
+    tol = MOE_RTOL_OF_MAX * float(want.float().abs().max())
+    assert float(diff[same].max()) <= tol, (float(diff[same].max()), tol)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mixtral-8x7b"])
+def test_moe_graphed_decode_step_equals_the_plain_step(cuda, arch):
+    """The batcher's CUDA graph of the MoE `decode_step` (routing,
+    dispatch and combine with fixed shapes, no host sync) replays the
+    plain step's kernels: 5 steps, logits and state equal at tolerance
+    0."""
+    from repro_torch.launch.serve import GraphedDecodeStep
+    cfg, m, params = _lm(arch)
+    gp = _tree_to(params, cuda)
+    step = GraphedDecodeStep(m.decode_step)
+    s_plain = m.init_decode_state(4, 16, device=cuda)
+    s_graph = m.init_decode_state(4, 16, device=cuda)
+    toks = torch.arange(20, dtype=torch.int32, device=cuda).reshape(5, 4)
+    for t in range(5):
+        want, s_plain = m.decode_step(gp, toks[t], s_plain)
+        got, s_graph = step(gp, toks[t], s_graph)
+        assert torch.equal(got, want)
+        assert all(torch.equal(s_graph[k], v) for k, v in s_plain.items())
+
+
+def test_graphed_decode_step_refuses_other_parameters(cuda):
+    """A graph captured for one parameter tree raises `ValueError` when
+    called with another (it would read the captured tensors), also under
+    `python -O`; the captured tree still replays."""
+    from repro_torch.launch.serve import GraphedDecodeStep
+    cfg, m, params = _lm("qwen2-moe-a2.7b")
+    gp = _tree_to(params, cuda)
+    other = _tree_to(params, cuda)
+    step = GraphedDecodeStep(m.decode_step)
+    state = m.init_decode_state(2, 16, device=cuda)
+    tok = torch.zeros(2, dtype=torch.int32, device=cuda)
+    step(gp, tok, state)
+    with pytest.raises(ValueError, match="other parameters"):
+        step(other, tok, state)
+    fresh = m.init_decode_state(2, 16, device=cuda)
+    got, _ = step(gp, tok, fresh)
+    want, _ = m.decode_step(gp, tok, fresh)
+    assert torch.equal(got, want)

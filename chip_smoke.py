@@ -167,7 +167,22 @@ Phases (any failure raises, and the exit code is not 0):
    card against the host CPU at 2 layers (forward and 4 decode steps),
    with the share of tokens routed to the same experts on both; held
    under 120 s;
-12. print the seconds phases 1-11 took, a `{"kernels": [...]}` line, the
+12. VLM and encoder-decoder serving (no kernel of the port on this
+   path): (a) paligemma-3b at full width with seeded random weights:
+   the same 8 requests on 4 slots through the batcher's graphed step,
+   bf16 KV, text only as the reference serves (steps/s, tokens/s, the
+   graphed and plain step's ms beside the bytes bound, peak memory, a
+   traced step); one image (256 patch embeddings from `make_batch`) and
+   128 text tokens forward, the suffix logits moved by zeroing the
+   image (> 1e-3); the card against the host CPU at 2 layers (that
+   forward and 4 decode steps, phase 10's tolerance); (b) whisper-medium
+   at full width: 1500 frames encoded, 16 decode steps over their cross
+   K/V against `decode_train` (atol 0.2 / rtol 0.05, argmax agreement
+   >= 0.85); the 8 requests on 4 slots through the graphed step against
+   zeroed cross K/V, as the reference's batcher serves; the card against
+   the host CPU at 2 encoder and 2 decoder layers (encoder output and 4
+   decode steps, phase 10's tolerance); held under 120 s;
+13. print the seconds phases 1-12 took, a `{"kernels": [...]}` line, the
    card's name and power limit, and, last, `{"ok": true, "device":
    {...}}`.
 
@@ -2666,6 +2681,30 @@ def lm_step_trace(bundle, params, dev, card, steps: int = 3,
     return res
 
 
+def serve_at_full_width(name, bundle, params, bound_ms, dev, card) -> dict:
+    """Phase 10's serving measurement on another model (phases 11, 12):
+    the 8 requests on 4 slots through the batcher's graphed step
+    (steps/s, tokens/s, peak memory), the step graphed and plain between
+    CUDA events, a traced graphed step."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(0, bundle.cfg.vocab_size, size=4))
+               for _ in range(8)]
+    r = lm_serve_timed(bundle, params, prompts, dev)
+    r.update(lm_step_ms(bundle, params, dev))
+    r["trace"] = lm_step_trace(bundle, params, dev, card, name=name)
+    r["bound_ms"] = bound_ms
+    r.pop("generated")
+    print(f"{name} ({card}): served 8 requests, bf16 KV: {r['steps']} "
+          f"decode steps in {r['seconds']:.3f} s, {r['steps_per_s']:.2f} "
+          f"steps/s, {r['tokens_per_s']:.2f} tokens/s; a step between CUDA "
+          f"events: graphed {r['graph_ms']:.3f} ms "
+          f"({r['graph_ms'] / bound_ms:.2f}x the {bound_ms:.3f} ms bound), "
+          f"plain {r['eager_ms']:.3f} ms; peak {r['peak_gb']:.2f} GB",
+          flush=True)
+    return r
+
+
 def lm_serving(dev, card) -> dict:
     """Phase 10: qwen3-4b at full width on the card (docstring item
     10)."""
@@ -2920,20 +2959,8 @@ def moe_serving(dev, card) -> dict:
         t_part = now
 
     # (a) 8 requests, 4 slots, bf16 KV, through the batcher's graphed step
-    rng = np.random.default_rng(0)
-    prompts = [list(rng.integers(0, cfg.vocab_size, size=4))
-               for _ in range(8)]
-    r = lm_serve_timed(bundle, params, prompts, dev)
-    r.update(lm_step_ms(bundle, params, dev))
-    r["trace"] = lm_step_trace(bundle, params, dev, card, name="moe")
-    r.pop("generated")
-    out["serve_bf16"] = r
-    print(f"moe ({card}): served 8 requests, bf16 KV: {r['steps']} decode "
-          f"steps in {r['seconds']:.3f} s, {r['steps_per_s']:.2f} steps/s, "
-          f"{r['tokens_per_s']:.2f} tokens/s; a step between CUDA events: "
-          f"graphed {r['graph_ms']:.3f} ms ({r['graph_ms'] / bound_ms:.2f}x "
-          f"the bound), plain {r['eager_ms']:.3f} ms; peak "
-          f"{r['peak_gb']:.2f} GB", flush=True)
+    out["serve_bf16"] = serve_at_full_width("moe", bundle, params, bound_ms,
+                                            dev, card)
     part("a")
 
     # (b) fused prefill of 128 tokens on the card and on the host CPU
@@ -3021,6 +3048,240 @@ def moe_serving(dev, card) -> dict:
     assert out["phase_s"] < MOE_PHASE_LIMIT_S, \
         f"phase 11 took {out['phase_s']:.1f} s, over {MOE_PHASE_LIMIT_S} s"
     print(json.dumps({"moe_serving": out}), flush=True)
+    return out
+
+
+# phase 12: paligemma-3b and whisper-medium served at full width
+# (src/repro/configs/paligemma_3b.py, src/repro/configs/whisper_medium.py)
+VLM_ENCDEC_PHASE_LIMIT_S = 120.0
+# tests/test_encdec_vlm.py:36-37: stepwise decode against decode_train
+ENCDEC_ATOL, ENCDEC_RTOL, ENCDEC_AGREE = 0.2, 0.05, 0.85
+# tests/test_encdec_vlm.py:80: the image prefix moves the suffix logits
+IMAGE_MIN_CHANGE = 1e-3
+
+
+def encdec_decode_bytes(cfg, slots: int) -> int:
+    """The least bytes a whisper decode step at `slots` moves: the
+    decoder weights it reads (self-attention, the cross-attention's
+    query and output projections, the MLP) and the unembedding once as
+    bf16, and every slot's cross K/V (bf16) once.  The cross-attention's
+    K and V projections are read by `cross_kv` only."""
+    D, F, L, hd = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.hd
+    H, KV, T = cfg.n_heads, cfg.n_kv_heads, cfg.encoder_seq
+    attn = 2 * D * H * hd + 2 * D * KV * hd
+    weights = L * (attn + 2 * D * H * hd + 3 * D * F) + D * cfg.vocab_padded
+    return (weights + 2 * L * slots * KV * T * hd) * 2
+
+
+def all_close(label, got, want, atol, rtol) -> float:
+    """got within (atol, rtol) of want, on the host; the largest
+    difference."""
+    import torch
+    got, want = got.float().cpu(), want.float().cpu()
+    diff = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=atol, rtol=rtol):
+        raise AssertionError(f"{label}: values differ by {diff}")
+    return diff
+
+
+def vlm_at_full_width(dev, card) -> dict:
+    """Phase 12 (a): paligemma-3b (docstring item 12)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.batches import make_batch
+    from repro_torch.models.common import tree_items, tree_map
+    from repro_torch.models.registry import get_model
+    cfg = get_config("paligemma-3b")
+    bundle = get_model(cfg)
+    params = bundle.init_params(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    assert n_params == cfg.param_count() + 2 * cfg.n_layers * cfg.d_model \
+        + cfg.d_model, "paligemma-3b: the tree is not the config's size"
+    bound_ms = lm_decode_bytes(cfg) / HBM_BYTES_PER_S * 1e3
+    print(f"vlm ({card}): paligemma-3b, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV head "
+          f"of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_padded}, "
+          f"{cfg.n_image_tokens} image tokens; {n_params / 1e9:.3f} G "
+          f"parameters, {4 * n_params / 1e9:.2f} GB in f32 on the card "
+          f"({torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated)",
+          flush=True)
+    out = {"params": n_params, "serve_bf16": serve_at_full_width(
+        "vlm", bundle, params, bound_ms, dev, card)}
+
+    # one image (256 patch embeddings) and 128 text tokens, on the card
+    S = cfg.n_image_tokens + 128
+    batch = make_batch(cfg, 1, S, seed=3, device=dev)
+    zero = dict(batch, patch_embeds=torch.zeros_like(batch["patch_embeds"]))
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with_img = bundle.forward(params, batch)
+    torch.cuda.synchronize(dev)
+    out["image_forward_s"] = time.perf_counter() - t0
+    without = bundle.forward(params, zero)
+    n = cfg.n_image_tokens
+    assert with_img.shape == (1, S, cfg.vocab_padded)
+    assert bool(torch.isfinite(with_img).all())
+    out["image_suffix_change"] = float(
+        (with_img[:, n:] - without[:, n:]).abs().max())
+    if not out["image_suffix_change"] > IMAGE_MIN_CHANGE:
+        raise AssertionError(f"vlm: zeroing the image moves the suffix "
+                             f"logits by {out['image_suffix_change']}")
+    print(f"vlm ({card}): forward of 1 image ({n} patch embeddings) and "
+          f"128 text tokens in {out['image_forward_s']:.3f} s; zeroing the "
+          f"patch embeddings moves the suffix logits by up to "
+          f"{out['image_suffix_change']:.5f} (> {IMAGE_MIN_CHANGE})",
+          flush=True)
+    del with_img, without
+
+    # the card against the host CPU, 2 layers, the same weights
+    cut = dataclasses.replace(cfg, n_layers=2)
+    m = get_model(cut)
+    p2 = dict(params, blocks=tree_map(lambda t: t[:2], params["blocks"]))
+    p2_cpu = host_copy(p2)
+    t0 = time.perf_counter()
+    diffs = {"forward": lm_close(
+        "vlm forward, card vs host CPU", m.forward(p2, batch),
+        m.forward(p2_cpu, tree_map(lambda t: t.cpu(), batch)))}
+    s_gpu = m.init_decode_state(1, 16, device=dev)
+    s_cpu = m.init_decode_state(1, 16, device="cpu")
+    d = 0.0
+    for t in range(4):
+        tok = batch["tokens"][:, n + t]
+        got, s_gpu = m.decode_step(p2, tok, s_gpu)
+        want, s_cpu = m.decode_step(p2_cpu, tok.cpu(), s_cpu)
+        d = max(d, lm_close(f"vlm decode step {t}, card vs host CPU", got,
+                            want))
+    diffs["decode_bf16"] = d
+    out["card_vs_cpu"] = diffs
+    out["card_vs_cpu_s"] = time.perf_counter() - t0
+    print(f"vlm ({card}): 2 layers at full width, card against host CPU "
+          f"(the image forward and 4 decode steps): largest logit "
+          f"differences {diffs} ({out['card_vs_cpu_s']:.2f} s)", flush=True)
+    del params, p2, p2_cpu, s_gpu, batch, zero
+    free_card()
+    return out
+
+
+def encdec_at_full_width(dev, card) -> dict:
+    """Phase 12 (b): whisper-medium (docstring item 12)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.batches import make_batch
+    from repro_torch.models import encdec
+    from repro_torch.models.common import tree_items, tree_map
+    from repro_torch.models.registry import get_model
+    cfg = get_config("whisper-medium")
+    bundle = get_model(cfg)
+    params = bundle.init_params(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    bound_ms = encdec_decode_bytes(cfg, 4) / HBM_BYTES_PER_S * 1e3
+    print(f"encdec ({card}): whisper-medium, {cfg.n_encoder_layers} "
+          f"encoder and {cfg.n_layers} decoder layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_padded}, {cfg.encoder_seq} frames; {n_params / 1e9:.4f}"
+          f" G parameters, {4 * n_params / 1e9:.2f} GB in f32 on the card "
+          f"({torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated)",
+          flush=True)
+    out = {"params": n_params}
+
+    # encode 1500 frames, then 16 decode steps over its cross K/V against
+    # decode_train (the reference test's check at full width)
+    batch = make_batch(cfg, 1, 16, seed=9, device=dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    enc = encdec.encode(params, batch["frames"], cfg)
+    torch.cuda.synchronize(dev)
+    out["encode_s"] = time.perf_counter() - t0
+    assert enc.shape == (1, cfg.encoder_seq, cfg.d_model)
+    assert bool(torch.isfinite(enc).all())
+    full = encdec.decode_train(params, batch["tokens"], enc, cfg)
+    ck, cv = encdec.cross_kv(params, enc, cfg)
+    state = dict(bundle.init_decode_state(1, 32, device=dev), cross_k=ck,
+                 cross_v=cv)
+    steps = []
+    for t in range(16):
+        logits, state = bundle.decode_step(params, batch["tokens"][:, t],
+                                           state)
+        steps.append(logits)
+    dec = torch.stack(steps, dim=1)
+    out["decode_vs_decode_train"] = all_close(
+        "whisper decode vs decode_train", dec, full, ENCDEC_ATOL,
+        ENCDEC_RTOL)
+    out["argmax_agreement"] = float(
+        (dec.argmax(-1) == full.argmax(-1)).float().mean())
+    if out["argmax_agreement"] < ENCDEC_AGREE:
+        raise AssertionError(f"whisper decode vs decode_train: argmax "
+                             f"agreement {out['argmax_agreement']}")
+    print(f"encdec ({card}): encoded {cfg.encoder_seq} frames in "
+          f"{out['encode_s']:.3f} s; 16 decode steps over its cross K/V "
+          f"against decode_train: largest logit difference "
+          f"{out['decode_vs_decode_train']:.5f} (atol {ENCDEC_ATOL}, rtol "
+          f"{ENCDEC_RTOL}), argmax agreement {out['argmax_agreement']:.4f}",
+          flush=True)
+    del enc, full, ck, cv, state, dec, steps
+
+    out["serve_bf16"] = serve_at_full_width("encdec", bundle, params,
+                                            bound_ms, dev, card)
+
+    # the card against the host CPU, 2 encoder and 2 decoder layers
+    cut = dataclasses.replace(cfg, n_layers=2, n_encoder_layers=2)
+    m = get_model(cut)
+    p2 = dict(params, **{k: tree_map(lambda t: t[:2], params[k])
+                         for k in ("enc_blocks", "dec_blocks")})
+    p2_cpu = host_copy(p2)
+    cpu_batch = tree_map(lambda t: t.cpu(), batch)
+    t0 = time.perf_counter()
+    enc_gpu = encdec.encode(p2, batch["frames"], cut)
+    enc_cpu = encdec.encode(p2_cpu, cpu_batch["frames"], cut)
+    diffs = {"encode": all_close("whisper encode, card vs host CPU",
+                                 enc_gpu, enc_cpu, LM_ATOL, LM_RTOL)}
+    s_gpu = dict(m.init_decode_state(1, 16, device=dev),
+                 **dict(zip(("cross_k", "cross_v"),
+                            encdec.cross_kv(p2, enc_gpu, cut))))
+    s_cpu = dict(m.init_decode_state(1, 16, device="cpu"),
+                 **dict(zip(("cross_k", "cross_v"),
+                            encdec.cross_kv(p2_cpu, enc_cpu, cut))))
+    d = 0.0
+    for t in range(4):
+        got, s_gpu = m.decode_step(p2, batch["tokens"][:, t], s_gpu)
+        want, s_cpu = m.decode_step(p2_cpu, cpu_batch["tokens"][:, t], s_cpu)
+        d = max(d, lm_close(f"whisper decode step {t}, card vs host CPU",
+                            got, want))
+    diffs["decode_bf16"] = d
+    out["card_vs_cpu"] = diffs
+    out["card_vs_cpu_s"] = time.perf_counter() - t0
+    print(f"encdec ({card}): 2 encoder and 2 decoder layers at full width, "
+          f"card against host CPU: largest differences {diffs} (encoder "
+          f"output, then logits of 4 decode steps; "
+          f"{out['card_vs_cpu_s']:.2f} s)", flush=True)
+    del params, p2, p2_cpu, s_gpu, enc_gpu, batch
+    free_card()
+    return out
+
+
+def vlm_encdec_serving(dev, card) -> dict:
+    """Phase 12: paligemma-3b and whisper-medium at full width on the
+    card (docstring item 12)."""
+    free_card()
+    t_phase = time.perf_counter()
+    out = {"paligemma-3b": vlm_at_full_width(dev, card)}
+    out["part_s"] = {"a": time.perf_counter() - t_phase}
+    out["whisper-medium"] = encdec_at_full_width(dev, card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["part_s"]["b"] = out["phase_s"] - out["part_s"]["a"]
+    print(f"vlm and encdec phase ({card}): {out['phase_s']:.2f} s (parts: "
+          + ", ".join(f"({k}) {v:.2f} s" for k, v in out["part_s"].items())
+          + ")", flush=True)
+    assert out["phase_s"] < VLM_ENCDEC_PHASE_LIMIT_S, \
+        f"phase 12 took {out['phase_s']:.1f} s, over " \
+        f"{VLM_ENCDEC_PHASE_LIMIT_S} s"
+    print(json.dumps({"vlm_encdec_serving": out}), flush=True)
     return out
 
 
@@ -3153,8 +3414,11 @@ def main() -> int:
     # -- 11. MoE serving -----------------------------------------------------
     moe_serving(dev, card)
 
-    # -- 12. result lines --------------------------------------------------
-    print(f"chip_smoke: phases 1-11 in {time.perf_counter() - t_script:.2f} s "
+    # -- 12. VLM and encoder-decoder serving -------------------------------
+    vlm_encdec_serving(dev, card)
+
+    # -- 13. result lines --------------------------------------------------
+    print(f"chip_smoke: phases 1-12 in {time.perf_counter() - t_script:.2f} s "
           f"({card})", flush=True)
     usm_t = band["usm"]
     print(json.dumps({"kernels": [{

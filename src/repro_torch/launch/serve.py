@@ -11,6 +11,12 @@ card unless ``--device cpu`` is given:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
         --smoke --requests 6 --slots 2 --max-new 16
 
+Every class `get_model` builds serves: the dense, MoE and VLM decoders
+(the VLM text-only, as the reference serves it) and whisper's
+encoder-decoder, whose decode state holds zeroed cross-attention K/V
+that the batcher never fills (the reference's batcher runs no encoder;
+ROADMAP, "Reference defects").
+
 The batcher keeps the reference's two properties, which make a request's
 tokens depend on the requests served before it in its slot: one decode
 position (``state["length"]``) shared by every slot, advanced by every
@@ -61,7 +67,10 @@ class GraphedDecodeStep:
     def _run(self, params):
         logits, new = self.decode_step(params, self.token, self.state)
         for k, v in new.items():
-            self.state[k].copy_(v)
+            # a tensor the step passes through (whisper's cross K/V) is
+            # not copied onto itself
+            if v is not self.state[k]:
+                self.state[k].copy_(v)
         return logits
 
     def _capture(self, params, token, state) -> None:

@@ -1,9 +1,9 @@
 """Attention: GQA/MQA with RoPE, optional qk-norm and sliding window.
 
-The port's own copy of `repro.models.attention` (`cross_attend` comes
-with the encoder-decoder slice).  Two entry points:
+The port's own copy of `repro.models.attention`.  Three entry points:
   * `attend_train`  — full-sequence causal attention (training / prefill)
   * `attend_decode` — one new token against a KV cache (serve_step)
+  * `cross_attend`  — decoder queries over precomputed encoder K/V
 
 Layouts: activations (B, S, D); q (B, S, H, hd); kv (B, S, KV, hd);
 cache (B, KV, S_max, hd).
@@ -273,6 +273,32 @@ def attend_decode(x, p, cfg: ModelConfig, cache: KVCache
     new = KVCache(*(None if t is None else t.clone() for t in cache))
     out = _attend_decode_into(x, p, cfg, new)
     return out, new._replace(length=cache.length + 1)
+
+
+def cross_attend(x, p, cfg: ModelConfig, enc_k, enc_v) -> torch.Tensor:
+    """Decoder cross-attention over precomputed encoder K/V (B, KV, T, hd).
+
+    x: (B, S, D) -> (B, S, D).  No rope and no mask; query-chunked like
+    `attend_train` (peak live logits (.., Cq, T), not (S, T))."""
+    B, S, D = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    groups = H // KV
+    q = _split_heads(dense(x, p["wq"]), H, hd)
+    q = q.reshape(B, S, KV, groups, hd).permute(0, 2, 3, 1, 4)
+    k = enc_k.to(q.dtype)
+
+    def block(qc):
+        probs = _softmax_f32(_scores(qc, k, hd)).to(enc_v.dtype)
+        return torch.matmul(probs.float(), enc_v[:, :, None].float())
+
+    if S <= QUERY_CHUNK or S % QUERY_CHUNK != 0:
+        out = block(q)
+    else:
+        out = torch.cat([block(q[:, :, :, c:c + QUERY_CHUNK])
+                         for c in range(0, S, QUERY_CHUNK)], dim=3)
+
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H * hd).to(x.dtype)
+    return dense(out, p["wo"])
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

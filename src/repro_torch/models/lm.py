@@ -1,10 +1,11 @@
 """Decoder LM assembly: embed -> stacked blocks -> norm -> unembed.
 
-The port's own copy of `repro.models.lm`, its dense and MoE branches.
-The reference consumes the layer-stacked parameters with
-`jax.lax.scan`; the port loops over the layer axis, one block at a time.
-The VLM prefix, RWKV6 and the Mamba2 hybrid come with later slices
-(`_transformer_only` names the ROADMAP item of each).
+The port's own copy of `repro.models.lm`, its dense, MoE and VLM
+(prefix-LM over patch embeddings) branches; whisper's encoder-decoder
+lives in `repro_torch.models.encdec`.  The reference consumes the
+layer-stacked parameters with `jax.lax.scan`; the port loops over the
+layer axis, one block at a time.  RWKV6 and the Mamba2 hybrid come with
+a later slice (`_transformer_only` names its ROADMAP item).
 """
 from __future__ import annotations
 
@@ -22,20 +23,20 @@ from repro_torch.models.common import (ModelConfig, ParamSpec, _scalar,
 
 # the ROADMAP Queue 1 item that ports each architecture class not ported yet
 NOT_PORTED = {
-    "vlm": "5b (MoE and VLM serving)",
-    "encdec": "5c (encoder-decoder)",
     "rwkv": "5d (rwkv and mamba)",
     "hybrid": "5d (rwkv and mamba)",
 }
 
 
 def _transformer_only(cfg: ModelConfig) -> None:
-    """The dense and MoE classes pass; the others raise."""
+    """The dense, MoE and VLM classes pass; rwkv and hybrid raise
+    `NotImplementedError`, any other class (encdec) `ValueError`, as the
+    reference's branches do."""
     if cfg.arch_class in NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: arch_class {cfg.arch_class!r} is not ported yet "
             f"(ROADMAP Queue 1 item {NOT_PORTED[cfg.arch_class]})")
-    if cfg.arch_class not in ("dense", "moe"):
+    if cfg.arch_class not in ("dense", "moe", "vlm"):
         raise ValueError(cfg.arch_class)
 
 
@@ -78,28 +79,42 @@ def layer_params(blocks: Dict, layer: int) -> Dict:
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def _embed(params, tokens, cfg: ModelConfig) -> torch.Tensor:
+def _embed(params, tokens, cfg: ModelConfig,
+           patch_embeds=None) -> torch.Tensor:
+    """Token embeddings in bf16, times `emb_scale`; for the VLM, the
+    patch embeddings (B, P, D) in bf16 over positions 0..P-1 (the
+    reference's `dynamic_update_slice_in_dim` at 0, unscaled)."""
     x = params["embed"][tokens].to(torch.bfloat16)
-    return x * _scalar(cfg.emb_scale, torch.bfloat16)
+    x = x * _scalar(cfg.emb_scale, torch.bfloat16)
+    if cfg.arch_class == "vlm" and patch_embeds is not None:
+        n = patch_embeds.shape[1]
+        x = torch.cat([patch_embeds.to(x.dtype), x[:, n:]], dim=1)
+    return x
 
 
 def _run_blocks(params, x, cfg: ModelConfig) -> torch.Tensor:
-    """The layer stack on an embedded stream x (B, S, D)."""
+    """The layer stack on an embedded stream x (B, S, D).  The VLM's
+    first `n_image_tokens` positions attend bidirectionally (prefix-LM),
+    with or without patch embeddings."""
     _transformer_only(cfg)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     rope = rope_tables(positions, cfg.hd, cfg.rope_theta)
+    prefix = cfg.n_image_tokens if cfg.arch_class == "vlm" else 0
     x = constrain_act(x, cfg)
     for layer in range(cfg.n_layers):
         x = B.transformer_fwd(x, layer_params(params["blocks"], layer), cfg,
-                              positions=positions, rope=rope)
+                              positions=positions, prefix_len=prefix,
+                              rope=rope)
         x = constrain_act(x, cfg)
     return x
 
 
-def forward(params, tokens, cfg: ModelConfig) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, vocab_padded), f32."""
-    x = _embed(params, tokens, cfg)
+def forward(params, tokens, cfg: ModelConfig,
+            patch_embeds=None) -> torch.Tensor:
+    """tokens (B, S) [and, for the VLM, patch_embeds (B, P, D)] -> logits
+    (B, S, vocab_padded), f32."""
+    x = _embed(params, tokens, cfg, patch_embeds)
     x = _run_blocks(params, x, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = dense(x, params["unembed"]).float()
@@ -141,7 +156,7 @@ def loss_fn(params, batch: Dict, cfg: ModelConfig
     """Next-token cross entropy (+ z-loss stabilizer), vocab-chunked.
 
     The forward value; gradients come with the training slice."""
-    x = _embed(params, batch["tokens"], cfg)
+    x = _embed(params, batch["tokens"], cfg, batch.get("patch_embeds"))
     x = _run_blocks(params, x, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     Bsz, S, D = x.shape

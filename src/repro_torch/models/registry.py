@@ -1,8 +1,8 @@
 """Uniform model interface (port of `repro.models.registry`).
 
-`get_model` builds the dense and the MoE decoder; the other
-architecture classes raise `NotImplementedError` naming the ROADMAP item
-that ports them.
+`get_model` builds the dense, MoE and VLM decoders and whisper's
+encoder-decoder; rwkv and hybrid raise `NotImplementedError` naming the
+ROADMAP item that ports them.
 `params_from_numpy` carries parameters (or a decode state) made by the
 JAX package, as numpy arrays in the same nested dict, into the port.
 """
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.models.common import ModelConfig, tree_map
 
 
@@ -33,6 +33,18 @@ class ModelBundle:
 
 
 def get_model(cfg: ModelConfig) -> ModelBundle:
+    if cfg.arch_class == "encdec":
+        return ModelBundle(
+            cfg=cfg,
+            param_specs=lambda: encdec.param_specs(cfg),
+            init_params=lambda generator: encdec.init_params(cfg, generator),
+            param_axes=lambda: encdec.param_axes(cfg),
+            loss_fn=lambda p, b: encdec.loss_fn(p, b, cfg),
+            forward=lambda p, b: encdec.forward(p, b, cfg),
+            init_decode_state=lambda bs, ml, pl=0, device=None:
+                encdec.init_decode_state(cfg, bs, ml, pl, device=device),
+            decode_step=lambda p, t, s: encdec.decode_step(p, t, s, cfg),
+        )
     lm._transformer_only(cfg)
     return ModelBundle(
         cfg=cfg,
@@ -40,7 +52,8 @@ def get_model(cfg: ModelConfig) -> ModelBundle:
         init_params=lambda generator: lm.init_params(cfg, generator),
         param_axes=lambda: lm.param_axes(cfg),
         loss_fn=lambda p, b: lm.loss_fn(p, b, cfg),
-        forward=lambda p, b: lm.forward(p, b["tokens"], cfg),
+        forward=lambda p, b: lm.forward(
+            p, b["tokens"], cfg, patch_embeds=b.get("patch_embeds")),
         init_decode_state=lambda bs, ml, pl=0, device=None:
             lm.init_decode_state(cfg, bs, ml, pl, device=device),
         decode_step=lambda p, t, s: lm.decode_step(p, t, s, cfg),

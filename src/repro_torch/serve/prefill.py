@@ -1,10 +1,14 @@
 """Fused prefill: populate a decode state from a whole prompt in one pass.
 
 The port's own copy of `repro.serve.prefill`, its transformer path
-(dense and MoE).  The continuous batcher's slot-local fallback feeds
-prompts token-by-token (correct, O(prompt) decode steps); production
-serving prefills the KV cache with one full-sequence forward.  The
-recurrent archs' prefill comes with the rwkv slice.
+(dense, MoE and VLM).  The continuous batcher's slot-local fallback
+feeds prompts token-by-token (correct, O(prompt) decode steps);
+production serving prefills the KV cache with one full-sequence
+forward.  The recurrent archs' prefill comes with the rwkv slice.
+
+As in the reference, the VLM's prefill embeds text only: no patch
+embeddings and no prefix-LM mask (ROADMAP, "Reference defects"); an
+encoder-decoder config fails `prefill_dense`'s assertion.
 """
 from __future__ import annotations
 

@@ -1458,3 +1458,86 @@ def test_graphed_decode_step_refuses_other_parameters(cuda):
     got, _ = step(gp, tok, fresh)
     want, _ = m.decode_step(gp, tok, fresh)
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the VLM and the encoder-decoder at smoke size: the card against the CPU
+# ---------------------------------------------------------------------------
+
+def test_vlm_forward_and_decode_on_the_card_equal_the_cpu(cuda):
+    """paligemma-smoke: the forward with the image prefix (8 patch
+    embeddings) and without, and 4 text decode steps; logits within
+    LM_ATOL with the top-1 rule, the caches within one bf16 unit."""
+    from repro_torch.data.batches import make_batch
+    cfg, m, params = _lm("paligemma-3b")
+    gp = _tree_to(params, cuda)
+    batch = make_batch(cfg, 2, 16, seed=4, device="cpu")
+    text = {"tokens": batch["tokens"]}
+    for b in (batch, text):
+        _close_logits(m.forward(gp, _tree_to(b, cuda)), m.forward(params, b),
+                      LM_ATOL)
+    s_cpu = m.init_decode_state(2, 16, device="cpu")
+    s_gpu = m.init_decode_state(2, 16, device=cuda)
+    for t in range(4):
+        tok = batch["tokens"][:, t]
+        want, s_cpu = m.decode_step(params, tok, s_cpu)
+        got, s_gpu = m.decode_step(gp, tok.to(cuda), s_gpu)
+        _close_logits(got, want, LM_ATOL)
+    for k in ("k", "v"):
+        g, w = s_gpu[k].float().cpu(), s_cpu[k].float()
+        assert ((g - w).abs() <= 2.0 ** -7 * w.abs() + 3e-5).all(), k
+
+
+def _whisper_smoke_state(m, params, batch, dev):
+    """whisper-smoke's decode state for `batch` on `dev`: the cross K/V
+    of its frames' encoder output."""
+    from repro_torch.models import encdec
+    enc = encdec.encode(params, batch["frames"].to(dev), m.cfg)
+    ck, cv = encdec.cross_kv(params, enc, m.cfg)
+    return enc, dict(m.init_decode_state(2, 16, device=dev), cross_k=ck,
+                     cross_v=cv)
+
+
+def test_encdec_forward_and_decode_on_the_card_equal_the_cpu(cuda):
+    """whisper-smoke: the encoder output within one bf16 unit of the
+    largest output, the forward's logits and those of 4 decode steps over
+    each device's own cross K/V within LM_ATOL with the top-1 rule."""
+    from repro_torch.data.batches import make_batch
+    cfg, m, params = _lm("whisper-medium")
+    gp = _tree_to(params, cuda)
+    batch = make_batch(cfg, 2, 16, seed=4, device="cpu")
+    _close_logits(m.forward(gp, _tree_to(batch, cuda)),
+                  m.forward(params, batch), LM_ATOL)
+    enc_cpu, s_cpu = _whisper_smoke_state(m, params, batch, "cpu")
+    enc_gpu, s_gpu = _whisper_smoke_state(m, gp, batch, cuda)
+    w = enc_cpu.float()
+    assert torch.allclose(enc_gpu.float().cpu(), w, rtol=2.0 ** -7,
+                          atol=2.0 ** -7 * float(w.abs().max()))
+    for t in range(4):
+        tok = batch["tokens"][:, t]
+        want, s_cpu = m.decode_step(params, tok, s_cpu)
+        got, s_gpu = m.decode_step(gp, tok.to(cuda), s_gpu)
+        _close_logits(got, want, LM_ATOL)
+
+
+def test_encdec_graphed_decode_step_equals_the_plain_step(cuda):
+    """The batcher's CUDA graph of whisper's `decode_step` replays the
+    plain step's kernels: 5 steps over the encoder's cross K/V, logits
+    and state equal at tolerance 0; the graph's state keeps its cross
+    K/V (passed through, not copied onto themselves)."""
+    from repro_torch.data.batches import make_batch
+    from repro_torch.launch.serve import GraphedDecodeStep
+    cfg, m, params = _lm("whisper-medium")
+    gp = _tree_to(params, cuda)
+    batch = make_batch(cfg, 2, 16, seed=5, device="cpu")
+    _, s_plain = _whisper_smoke_state(m, gp, batch, cuda)
+    s_graph = {k: v.clone() for k, v in s_plain.items()}
+    cross = s_plain["cross_k"].clone()
+    step = GraphedDecodeStep(m.decode_step)
+    toks = batch["tokens"][:, :5].T.contiguous().to(cuda)
+    for t in range(5):
+        want, s_plain = m.decode_step(gp, toks[t], s_plain)
+        got, s_graph = step(gp, toks[t], s_graph)
+        assert torch.equal(got, want)
+        assert all(torch.equal(s_graph[k], v) for k, v in s_plain.items())
+    assert torch.equal(s_graph["cross_k"], cross)

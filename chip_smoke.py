@@ -182,7 +182,22 @@ Phases (any failure raises, and the exit code is not 0):
    zeroed cross K/V, as the reference's batcher serves; the card against
    the host CPU at 2 encoder and 2 decoder layers (encoder output and 4
    decode steps, phase 10's tolerance); held under 120 s;
-13. print the seconds phases 1-12 took, a `{"kernels": [...]}` line, the
+13. RWKV6 serving: rwkv6-3b at full width with seeded random weights
+   (`models/ssm.py` and the rwkv blocks; no kernel of the port on this
+   path): the same 8 requests on 4 slots through the batcher's graphed
+   step (steps/s, tokens/s, the graphed and plain step's ms beside the
+   bytes bounds of `lm_decode_bytes` and of the parameter tree, peak
+   memory, a traced step); a 128-token `prefill_recurrent` against 128
+   decode steps at 2 layers (the reference test's depth; atol 0.15 /
+   rtol 0.05, the next step's token equal) and at 32 (the next token
+   equal; the difference printed beside the same prefill's on the card
+   and the host CPU: bf16 rounding noise grows layer by layer on random
+   weights, `rwkv_prefill_drift`); the card against the host CPU at
+   2 layers, forward and 4 decode steps: layer by layer from the card's
+   inputs and states (outputs and WKV states within two bf16 units of
+   their largest, logits from the card's last hidden state within
+   phase 10's tolerance), and end to end (printed); held under 60 s;
+14. print the seconds phases 1-13 took, a `{"kernels": [...]}` line, the
    card's name and power limit, and, last, `{"ok": true, "device":
    {...}}`.
 
@@ -2681,8 +2696,9 @@ def lm_step_trace(bundle, params, dev, card, steps: int = 3,
     return res
 
 
-def serve_at_full_width(name, bundle, params, bound_ms, dev, card) -> dict:
-    """Phase 10's serving measurement on another model (phases 11, 12):
+def serve_at_full_width(name, bundle, params, bound_ms, dev, card,
+                        state: str = "bf16 KV") -> dict:
+    """Phase 10's serving measurement on another model (phases 11-13):
     the 8 requests on 4 slots through the batcher's graphed step
     (steps/s, tokens/s, peak memory), the step graphed and plain between
     CUDA events, a traced graphed step."""
@@ -2695,7 +2711,7 @@ def serve_at_full_width(name, bundle, params, bound_ms, dev, card) -> dict:
     r["trace"] = lm_step_trace(bundle, params, dev, card, name=name)
     r["bound_ms"] = bound_ms
     r.pop("generated")
-    print(f"{name} ({card}): served 8 requests, bf16 KV: {r['steps']} "
+    print(f"{name} ({card}): served 8 requests, {state}: {r['steps']} "
           f"decode steps in {r['seconds']:.3f} s, {r['steps_per_s']:.2f} "
           f"steps/s, {r['tokens_per_s']:.2f} tokens/s; a step between CUDA "
           f"events: graphed {r['graph_ms']:.3f} ms "
@@ -2891,18 +2907,20 @@ def routes_alike(a, b):
     return torch.stack([(x == y).all(-1) for x, y in zip(a, b)])
 
 
-def host_copy(params):
+def host_copy(params, f32_leaves=()):
     """The parameters on the host: each matrix in bf16, the values every
     use of it rounds to first (`common.matmul_f32`, `moe._bmm_f32`, the
     embedding gather), so the CPU computes what it would from the f32
-    store; the norm weights, read in f32, in f32."""
+    store; the norm weights and the leaves named in `f32_leaves`, read
+    in f32, in f32."""
     import torch
 
     from repro_torch.models.common import tree_map
 
     def leaf(path, t):
-        norm = path[-1].startswith("ln_") or "norm" in path[-1]
-        return t.cpu() if norm else t.to(torch.bfloat16).cpu()
+        f32 = path[-1].startswith("ln_") or "norm" in path[-1] \
+            or path[-1] in f32_leaves
+        return t.cpu() if f32 else t.to(torch.bfloat16).cpu()
     return tree_map(leaf, params, with_path=True)
 
 
@@ -3285,6 +3303,285 @@ def vlm_encdec_serving(dev, card) -> dict:
     return out
 
 
+# phase 13: rwkv6-3b served at full width (src/repro/configs/rwkv6_3b.py)
+RWKV_PHASE_LIMIT_S = 60.0
+# the RWKV6 leaves a use reads in f32 (`blocks._rwkv_decay`, the bonus u,
+# `rms_norm`'s weights and ln_x); every other matrix is rounded to bf16
+# first, the mixes' mu too
+RWKV_F32_LEAVES = ("w_lora_a", "w_lora_b", "w0", "u", "ln1", "ln2")
+
+
+def rwkv_decode_bytes(params, slots: int) -> int:
+    """The least bytes an rwkv decode step at `slots` moves, from the
+    parameter tree: every weight but the embedding read once as bf16,
+    and the state (the f32 WKV state, the bf16 carried tokens) read and
+    written once.  `lm_decode_bytes` counts the config's
+    `param_count()`, whose 4 D^2 + 3 D F a layer is not the block's
+    6 D^2 + 2 D F + 2 D 64."""
+    from repro_torch.models.common import tree_items
+    weights = sum(t.numel() for p, t in tree_items(params)
+                  if p[0] != "embed")
+    L, H, K = params["blocks"]["tmix"]["u"].shape
+    D = params["blocks"]["ln1"].shape[1]
+    state = slots * L * (H * K * K * 4 + 2 * D * 2)
+    return weights * 2 + 2 * state
+
+
+def max_diff(got, want) -> float:
+    return float((got.float().cpu() - want.float().cpu()).abs().max())
+
+
+def rwkv_prefill_and_decode(bundle, params, step, toks, dev):
+    """`toks` (1, T) fed to `step` one at a time from an empty state, then
+    to `prefill`: the last step's logits and state, the prefill's, and
+    the prefill's seconds."""
+    import torch
+
+    from repro_torch.serve.prefill import prefill
+    T = toks.shape[1]
+    state = bundle.init_decode_state(1, T + 8, device=dev)
+    for t in range(T):
+        logits, state = step(params, toks[:, t].to(dev), state)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    pf, pf_state = prefill(params, toks.to(dev), bundle.cfg, T + 8)
+    torch.cuda.synchronize(dev)
+    return logits, state, pf, pf_state, time.perf_counter() - t0
+
+
+def rwkv_prefill_drift(dev, card) -> None:
+    """Not a phase (call it from `python -c` on a machine with a card):
+    rwkv6-3b at full width cut to 1-32 layers, prefill against 8 and 128
+    decode steps, beside the rounding noise of one algorithm (the
+    prefill of a batch of 1 against the same row in a batch of 2)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.prefill import prefill
+    cfg = get_config("rwkv6-3b")
+    params = get_model(cfg).init_params(
+        torch.Generator(device=dev).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, 128)).astype(np.int32))
+    for L in (1, 2, 4, 8, 16, 32):
+        m = get_model(dataclasses.replace(cfg, n_layers=L))
+        p = dict(params, blocks=tree_map(lambda t: t[:L], params["blocks"]))
+        for T in (8, 128):
+            lg, st, pf, ps, _ = rwkv_prefill_and_decode(
+                m, p, m.decode_step, toks[:, :T], dev)
+            pf2, _ = prefill(p, toks[:, :T].repeat(2, 1).to(dev), m.cfg,
+                             T + 8)
+            s_apart = max_diff(ps["s"], st["s"]) / float(st["s"].abs().max())
+            print(f"rwkv drift ({card}): {L} layers, {T} tokens: prefill "
+                  f"vs decode {max_diff(pf, lg):.5f}, prefill batch 1 vs "
+                  f"2 {max_diff(pf, pf2[:1]):.5f}, largest logit "
+                  f"{float(lg.abs().max()):.3f}, next token equal "
+                  f"{bool(torch.equal(pf.argmax(-1), lg.argmax(-1)))}, "
+                  f"WKV state apart by {s_apart:.5f} of its largest",
+                  flush=True)
+
+
+# a layer on the card and on the host CPU from the same input and state:
+# output and WKV state apart by at most this share of their largest
+# magnitude (two bf16 units; a unit apart seen)
+RWKV_LAYER_TOL = 2.0 ** -6
+
+
+def rwkv_layers_on_both(p, p_cpu, cfg, x, state) -> tuple:
+    """Each layer of `p` (on the card) and of `p_cpu` (on the host CPU)
+    from the card's input x (B, T, D), chunked from zeros where `state`
+    is None, else a token from the card's state: outputs and WKV states
+    within RWKV_LAYER_TOL, then the logits from the card's last hidden
+    state within phase 10's tolerance.  The card's new state, and (the
+    largest relative difference, the largest logit difference)."""
+    import torch
+
+    from repro_torch.models import blocks, lm
+    from repro_torch.models.common import _scalar, dense, rms_norm
+    rel, new = 0.0, {"s": [], "x_att": [], "x_ffn": []}
+    for layer in range(cfg.n_layers):
+        st = None if state is None else {k: state[k][layer] for k in new}
+        y, s_new = blocks.rwkv_fwd(x, lm.layer_params(p["blocks"], layer),
+                                   cfg, st, chunked=state is None)
+        y_cpu, s_cpu = blocks.rwkv_fwd(
+            x.cpu(), lm.layer_params(p_cpu["blocks"], layer), cfg,
+            None if st is None else {k: v.cpu() for k, v in st.items()},
+            chunked=state is None)
+        for label, g, w in (("output", y, y_cpu),
+                            ("WKV state", s_new["s"], s_cpu["s"])):
+            r = max_diff(g, w) / float(w.float().abs().max())
+            if r > RWKV_LAYER_TOL:
+                raise AssertionError(f"rwkv layer {layer} {label}, card vs "
+                                     f"host CPU: apart by {r} of its largest")
+            rel = max(rel, r)
+        for k in new:
+            new[k].append(s_new[k])
+        x = y
+
+    def head(q, h):
+        h = rms_norm(h, q["final_norm"], cfg.norm_eps)
+        return dense(h, q["unembed"]).float() * _scalar(cfg.logit_scale,
+                                                        torch.float32)
+    d = lm_close("rwkv logits from the card's last hidden state, card vs "
+                 "host CPU", head(p, x), head(p_cpu, x.cpu()))
+    new = {k: torch.stack(v) for k, v in new.items()}
+    if state is not None:
+        new["length"] = state["length"] + 1
+    return new, (rel, d)
+
+
+def rwkv_serving(dev, card) -> dict:
+    """Phase 13: rwkv6-3b at full width on the card (docstring item
+    13)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.batches import make_batch
+    from repro_torch.launch.serve import GraphedDecodeStep
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_items, tree_map
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.prefill import prefill
+    free_card()
+    t_phase = time.perf_counter()
+    cfg = get_config("rwkv6-3b")
+    bundle = get_model(cfg)
+    params = bundle.init_params(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    bound_ms = lm_decode_bytes(cfg) / HBM_BYTES_PER_S * 1e3
+    tree_bound_ms = rwkv_decode_bytes(params, 4) / HBM_BYTES_PER_S * 1e3
+    print(f"rwkv ({card}): rwkv6-3b, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.d_model // cfg.rwkv_head_dim} heads of "
+          f"{cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_padded}; "
+          f"{n_params / 1e9:.3f} G parameters, {4 * n_params / 1e9:.2f} GB "
+          f"in f32 on the card ({torch.cuda.memory_allocated(dev) / 1e9:.2f} "
+          f"GB allocated); a decode step's bytes bound {bound_ms:.3f} ms "
+          f"(param_count), {tree_bound_ms:.3f} ms (the tree and the state "
+          f"at 4 slots)", flush=True)
+    out = {"params": n_params, "bound_ms": bound_ms,
+           "tree_bound_ms": tree_bound_ms, "part_s": {}}
+    t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        out["part_s"][name] = now - t_part
+        t_part = now
+
+    # (a) 8 requests, 4 slots, through the batcher's graphed step
+    out["serve"] = serve_at_full_width("rwkv", bundle, params, bound_ms,
+                                       dev, card, "recurrent state")
+    part("a")
+
+    # (b) prefill_recurrent of 128 tokens against 128 decode steps: at
+    # the reference test's depth (its smoke config's 2 layers, here at
+    # full width) within its tolerance; at full depth, where bf16
+    # rounding noise grows layer by layer on random weights
+    # (`rwkv_prefill_drift`), the next token equal, the difference
+    # printed beside the same prefill's on the card and the host CPU
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, 128)).astype(np.int32))
+    cut = dataclasses.replace(cfg, n_layers=2)
+    m = get_model(cut)
+    p2 = dict(params, blocks=tree_map(lambda t: t[:2], params["blocks"]))
+    lg2, st2, pf2, pst2, _ = rwkv_prefill_and_decode(m, p2, m.decode_step,
+                                                     toks, dev)
+    out["prefill_2_layers_max_diff"] = lm_close(
+        "rwkv prefill vs 128 decode steps, 2 layers", pf2, lg2)
+    nxt = lg2.argmax(-1).to(torch.int32)
+    if not torch.equal(m.decode_step(p2, nxt, st2)[0].argmax(-1),
+                       m.decode_step(p2, nxt, pst2)[0].argmax(-1)):
+        raise AssertionError("rwkv prefill, 2 layers: the next step's "
+                             "token differs")
+    del st2, pst2
+    lg, _, pf, _, out["prefill_s"] = rwkv_prefill_and_decode(
+        bundle, params, GraphedDecodeStep(bundle.decode_step), toks, dev)
+    t0 = time.perf_counter()
+    params_cpu = host_copy(params, RWKV_F32_LEAVES)
+    out["to_host_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_logits, _ = prefill(params_cpu, toks, cfg, 136)
+    out["prefill_cpu_s"] = time.perf_counter() - t0
+    out["prefill_max_diff"] = max_diff(pf, lg)
+    out["prefill_card_vs_cpu"] = max_diff(pf, cpu_logits)
+    top2 = lg.float().topk(2, dim=-1).values[0]
+    out["decode_top2_margin"] = float(top2[0] - top2[1])
+    out["card_vs_cpu_token_equal"] = bool(torch.equal(
+        pf.argmax(-1).cpu(), cpu_logits.argmax(-1)))
+    print(f"rwkv ({card}): prefill_recurrent of 128 tokens, card "
+          f"{out['prefill_s']:.3f} s, host CPU {out['prefill_cpu_s']:.2f} s "
+          f"(weights copied to the host in {out['to_host_s']:.2f} s); "
+          f"largest logit difference against 128 decode steps at 2 layers "
+          f"{out['prefill_2_layers_max_diff']:.5f} (next token equal), at "
+          f"{cfg.n_layers} layers {out['prefill_max_diff']:.5f}; the "
+          f"{cfg.n_layers}-layer prefill card against host CPU "
+          f"{out['prefill_card_vs_cpu']:.5f} (next token equal: "
+          f"{out['card_vs_cpu_token_equal']}); the decode's top-2 margin "
+          f"{out['decode_top2_margin']:.5f}", flush=True)
+    assert bool(torch.isfinite(pf).all()) and pf.shape == lg.shape
+    if not torch.equal(pf.argmax(-1), lg.argmax(-1)):
+        raise AssertionError("rwkv prefill: the next token differs from "
+                             "128 decode steps'")
+    part("b")
+
+    # (c) the card against the host CPU at 2 layers, the same weights:
+    # layer by layer from the card's inputs and states (gated), and end
+    # to end (printed: a bf16 rounding a unit apart compounds from layer
+    # to layer on random weights, so the ends part further)
+    p2_cpu = dict(params_cpu,
+                  blocks=tree_map(lambda t: t[:2], params_cpu["blocks"]))
+    tokens = make_batch(cut, 2, 16, seed=2, device="cpu")["tokens"]
+    t0 = time.perf_counter()
+    gate = {"forward": rwkv_layers_on_both(
+        p2, p2_cpu, cut, lm._embed(p2, tokens.to(dev), cut), None)[1]}
+    state = m.init_decode_state(2, 16, device=dev)
+    for t in range(4):
+        x = lm._embed(p2, tokens[:, t:t + 1].to(dev), cut)
+        state, gate[f"decode_{t}"] = rwkv_layers_on_both(p2, p2_cpu, cut,
+                                                         x, state)
+    ends = {"forward": (m.forward(p2, {"tokens": tokens.to(dev)}),
+                        m.forward(p2_cpu, {"tokens": tokens}))}
+    s_gpu = m.init_decode_state(2, 16, device=dev)
+    s_cpu = m.init_decode_state(2, 16, device="cpu")
+    for t in range(4):
+        got, s_gpu = m.decode_step(p2, tokens[:, t].to(dev), s_gpu)
+        want, s_cpu = m.decode_step(p2_cpu, tokens[:, t], s_cpu)
+        ends[f"decode_{t}"] = (got, want)
+    out["card_vs_cpu"] = {
+        "layer_by_layer": gate,
+        "end_to_end": {k: max_diff(g, w) for k, (g, w) in ends.items()},
+        "end_to_end_token_agreement": {
+            k: float((g.argmax(-1).cpu() == w.argmax(-1)).float().mean())
+            for k, (g, w) in ends.items()}}
+    out["card_vs_cpu_s"] = time.perf_counter() - t0
+    print(f"rwkv ({card}): 2 layers at full width, card against host CPU "
+          f"(forward of 2x16 and 4 decode steps): layer by layer from the "
+          f"card's inputs (largest output and WKV state difference over "
+          f"their largest, then logits): {gate}; end to end, largest "
+          f"logit differences {out['card_vs_cpu']['end_to_end']}, top-1 "
+          f"agreement {out['card_vs_cpu']['end_to_end_token_agreement']} "
+          f"({out['card_vs_cpu_s']:.2f} s)", flush=True)
+    del params, params_cpu, p2, p2_cpu, state, s_gpu
+    free_card()
+    part("c")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"rwkv phase ({card}): {out['phase_s']:.2f} s (parts: "
+          + ", ".join(f"({k}) {v:.2f} s" for k, v in out["part_s"].items())
+          + ")", flush=True)
+    assert out["phase_s"] < RWKV_PHASE_LIMIT_S, \
+        f"phase 13 took {out['phase_s']:.1f} s, over {RWKV_PHASE_LIMIT_S} s"
+    print(json.dumps({"rwkv_serving": out}), flush=True)
+    return out
+
+
 def smt_walk_rows(smt) -> list:
     """The walk kernels' entries of the kernels line: launches from phase
     7 (a), the rest at the engine's batch, `SMT_WALK_MAIN_N` boxes."""
@@ -3417,8 +3714,11 @@ def main() -> int:
     # -- 12. VLM and encoder-decoder serving -------------------------------
     vlm_encdec_serving(dev, card)
 
-    # -- 13. result lines --------------------------------------------------
-    print(f"chip_smoke: phases 1-12 in {time.perf_counter() - t_script:.2f} s "
+    # -- 13. RWKV6 serving ---------------------------------------------------
+    rwkv_serving(dev, card)
+
+    # -- 14. result lines --------------------------------------------------
+    print(f"chip_smoke: phases 1-13 in {time.perf_counter() - t_script:.2f} s "
           f"({card})", flush=True)
     usm_t = band["usm"]
     print(json.dumps({"kernels": [{

@@ -11,8 +11,8 @@ card unless ``--device cpu`` is given:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
         --smoke --requests 6 --slots 2 --max-new 16
 
-Every class `get_model` builds serves: the dense, MoE and VLM decoders
-(the VLM text-only, as the reference serves it) and whisper's
+Every class `get_model` builds serves: the dense, MoE, VLM and RWKV6
+decoders (the VLM text-only, as the reference serves it) and whisper's
 encoder-decoder, whose decode state holds zeroed cross-attention K/V
 that the batcher never fills (the reference's batcher runs no encoder;
 ROADMAP, "Reference defects").
@@ -22,7 +22,9 @@ tokens depend on the requests served before it in its slot: one decode
 position (``state["length"]``) shared by every slot, advanced by every
 step, and slots whose caches are not cleared on admission.  So a request
 admitted at step t attends to positions 0..t-1 of its slot, which hold
-the previous occupant's K/V or zeros (ROADMAP, "Reference defects").
+the previous occupant's K/V or zeros, and an RWKV6 request starts from
+the WKV state and carried tokens its slot's last occupant left (ROADMAP,
+"Reference defects").
 """
 from __future__ import annotations
 

@@ -1,11 +1,11 @@
 """Decoder LM assembly: embed -> stacked blocks -> norm -> unembed.
 
-The port's own copy of `repro.models.lm`, its dense, MoE and VLM
-(prefix-LM over patch embeddings) branches; whisper's encoder-decoder
-lives in `repro_torch.models.encdec`.  The reference consumes the
-layer-stacked parameters with `jax.lax.scan`; the port loops over the
-layer axis, one block at a time.  RWKV6 and the Mamba2 hybrid come with
-a later slice (`_transformer_only` names its ROADMAP item).
+The port's own copy of `repro.models.lm`, its dense, MoE, VLM
+(prefix-LM over patch embeddings) and RWKV6 branches; whisper's
+encoder-decoder lives in `repro_torch.models.encdec`.  The reference
+consumes the layer-stacked parameters with `jax.lax.scan`; the port
+loops over the layer axis, one block at a time.  The Mamba2 hybrid
+comes with a later slice (`_check_ported` names its ROADMAP item).
 """
 from __future__ import annotations
 
@@ -23,20 +23,19 @@ from repro_torch.models.common import (ModelConfig, ParamSpec, _scalar,
 
 # the ROADMAP Queue 1 item that ports each architecture class not ported yet
 NOT_PORTED = {
-    "rwkv": "5d (rwkv and mamba)",
-    "hybrid": "5d (rwkv and mamba)",
+    "hybrid": "5d (the mamba2 hybrid)",
 }
 
 
-def _transformer_only(cfg: ModelConfig) -> None:
-    """The dense, MoE and VLM classes pass; rwkv and hybrid raise
+def _check_ported(cfg: ModelConfig) -> None:
+    """The dense, MoE, VLM and rwkv classes pass; hybrid raises
     `NotImplementedError`, any other class (encdec) `ValueError`, as the
     reference's branches do."""
     if cfg.arch_class in NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: arch_class {cfg.arch_class!r} is not ported yet "
             f"(ROADMAP Queue 1 item {NOT_PORTED[cfg.arch_class]})")
-    if cfg.arch_class not in ("dense", "moe", "vlm"):
+    if cfg.arch_class not in ("dense", "moe", "vlm", "rwkv"):
         raise ValueError(cfg.arch_class)
 
 
@@ -46,14 +45,17 @@ def _transformer_only(cfg: ModelConfig) -> None:
 
 
 def param_specs(cfg: ModelConfig) -> Dict:
-    _transformer_only(cfg)
+    _check_ported(cfg)
     D, Vp, L = cfg.d_model, cfg.vocab_padded, cfg.n_layers
     specs: Dict[str, Any] = {
         "embed": ParamSpec((Vp, D), ("vocab", "embed")),
         "final_norm": ParamSpec((D,), ("embed",), init="ones"),
         "unembed": ParamSpec((D, Vp), ("embed", "vocab")),
     }
-    specs["blocks"] = B.transformer_specs(cfg, stacked=L)
+    if cfg.arch_class == "rwkv":
+        specs["blocks"] = B.rwkv_specs(cfg, stacked=L)
+    else:
+        specs["blocks"] = B.transformer_specs(cfg, stacked=L)
     return specs
 
 
@@ -95,13 +97,16 @@ def _embed(params, tokens, cfg: ModelConfig,
 def _run_blocks(params, x, cfg: ModelConfig) -> torch.Tensor:
     """The layer stack on an embedded stream x (B, S, D).  The VLM's
     first `n_image_tokens` positions attend bidirectionally (prefix-LM),
-    with or without patch embeddings."""
-    _transformer_only(cfg)
+    with or without patch embeddings; rwkv runs each layer from a zero
+    state, the WKV chunked."""
+    _check_ported(cfg)
+    x = constrain_act(x, cfg)
+    if cfg.arch_class == "rwkv":
+        return rwkv_layers(params, x, cfg)[0]
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     rope = rope_tables(positions, cfg.hd, cfg.rope_theta)
     prefix = cfg.n_image_tokens if cfg.arch_class == "vlm" else 0
-    x = constrain_act(x, cfg)
     for layer in range(cfg.n_layers):
         x = B.transformer_fwd(x, layer_params(params["blocks"], layer), cfg,
                               positions=positions, prefix_len=prefix,
@@ -176,11 +181,24 @@ def loss_fn(params, batch: Dict, cfg: ModelConfig
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       prefill_len: int = 0, device=None) -> Dict:
     """State for one-token decode on `device` (None: the card).
-    `prefill_len` marks the cache as already holding that many tokens."""
-    _transformer_only(cfg)
+    `prefill_len` marks the cache as already holding that many tokens.
+    rwkv's state is the f32 WKV state (L, B, H, K, K) and each layer's
+    last normed token before its time and channel mix, bf16."""
+    _check_ported(cfg)
     dev = resolve_device(device)
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
     length = torch.tensor(prefill_len, dtype=torch.int32, device=dev)
+    if cfg.arch_class == "rwkv":
+        D, K = cfg.d_model, cfg.rwkv_head_dim
+        return {
+            "s": torch.zeros((L, batch, D // K, K, K), dtype=torch.float32,
+                             device=dev),
+            "x_att": torch.zeros((L, batch, D), dtype=torch.bfloat16,
+                                 device=dev),
+            "x_ffn": torch.zeros((L, batch, D), dtype=torch.bfloat16,
+                                 device=dev),
+            "length": length,
+        }
     shape = (L, batch, KV, max_len, hd)
     if cfg.kv_cache_dtype == "int8":
         # paper technique on the decode working set: int8 codes +
@@ -206,8 +224,39 @@ def decode_step(params, token, state: Dict, cfg: ModelConfig
     """token (B,) int -> (logits (B, vocab_padded) f32, new state).
 
     `state` is left as it was: the new state's caches are copies."""
-    _transformer_only(cfg)
+    _check_ported(cfg)
     x = _embed(params, token[:, None], cfg)
+    length = state["length"]
+    if cfg.arch_class == "rwkv":
+        x, new_state = rwkv_layers(params, x, cfg, state)
+    else:
+        x, new_state = _transformer_step(params, x, state, cfg)
+    new_state["length"] = length + 1
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = dense(x[:, 0, :], params["unembed"]).float()
+    return (logits * _scalar(cfg.logit_scale, torch.float32),
+            new_state)
+
+
+def rwkv_layers(params, x, cfg: ModelConfig, state=None):
+    """Every rwkv layer on x (B, T, D): from zero states with the WKV
+    chunked where `state` is None (the forward, prefill), else from the
+    carried per-layer state a token at a time (decode).  (x, each
+    layer's new s, x_att and x_ffn stacked on the layer axis)."""
+    new = {"s": [], "x_att": [], "x_ffn": []}
+    for layer in range(cfg.n_layers):
+        st = None if state is None else {k: state[k][layer] for k in new}
+        x, st = B.rwkv_fwd(x, layer_params(params["blocks"], layer), cfg,
+                           state=st, chunked=state is None)
+        x = constrain_act(x, cfg)
+        for k in new:
+            new[k].append(st[k])
+    return x, {k: torch.stack(v) for k, v in new.items()}
+
+
+def _transformer_step(params, x, state: Dict, cfg: ModelConfig):
+    """Every layer's block on one token, its K/V written into copies of
+    the caches at the shared position."""
     length = state["length"]
     new_state = {k: v.clone() for k, v in state.items() if k != "length"}
     scales = cfg.kv_cache_dtype == "int8"
@@ -220,9 +269,4 @@ def decode_step(params, token, state: Dict, cfg: ModelConfig
             v_scale=new_state["v_scale"][layer] if scales else None)
         x = B._transformer_step_into(
             x, layer_params(params["blocks"], layer), cfg, cache, rope)
-    new_state["length"] = length + 1
-
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = dense(x[:, 0, :], params["unembed"]).float()
-    return (logits * _scalar(cfg.logit_scale, torch.float32),
-            new_state)
+    return x, new_state

@@ -1,8 +1,8 @@
 """Uniform model interface (port of `repro.models.registry`).
 
-`get_model` builds the dense, MoE and VLM decoders and whisper's
-encoder-decoder; rwkv and hybrid raise `NotImplementedError` naming the
-ROADMAP item that ports them.
+`get_model` builds the dense, MoE, VLM and RWKV6 decoders and whisper's
+encoder-decoder; the hybrid raises `NotImplementedError` naming the
+ROADMAP item that ports it.
 `params_from_numpy` carries parameters (or a decode state) made by the
 JAX package, as numpy arrays in the same nested dict, into the port.
 """
@@ -45,7 +45,7 @@ def get_model(cfg: ModelConfig) -> ModelBundle:
                 encdec.init_decode_state(cfg, bs, ml, pl, device=device),
             decode_step=lambda p, t, s: encdec.decode_step(p, t, s, cfg),
         )
-    lm._transformer_only(cfg)
+    lm._check_ported(cfg)
     return ModelBundle(
         cfg=cfg,
         param_specs=lambda: lm.param_specs(cfg),

@@ -1,14 +1,14 @@
 """Fused prefill: populate a decode state from a whole prompt in one pass.
 
-The port's own copy of `repro.serve.prefill`, its transformer path
-(dense, MoE and VLM).  The continuous batcher's slot-local fallback
-feeds prompts token-by-token (correct, O(prompt) decode steps);
-production serving prefills the KV cache with one full-sequence
-forward.  The recurrent archs' prefill comes with the rwkv slice.
+The port's own copy of `repro.serve.prefill`.  The continuous batcher's
+slot-local fallback feeds prompts token-by-token (correct, O(prompt)
+decode steps); production serving prefills the KV cache (dense, MoE and
+VLM) or the recurrent state (rwkv) with one full-sequence forward.
 
 As in the reference, the VLM's prefill embeds text only: no patch
 embeddings and no prefix-LM mask (ROADMAP, "Reference defects"); an
-encoder-decoder config fails `prefill_dense`'s assertion.
+encoder-decoder or hybrid config goes to `prefill_dense` and fails its
+first assertion.
 """
 from __future__ import annotations
 
@@ -31,7 +31,6 @@ def prefill_dense(params, tokens, cfg: ModelConfig, max_len: int
     """
     assert cfg.arch_class in ("dense", "moe", "vlm")
     assert cfg.kv_cache_dtype == "bf16", "int8 prefill: quantize post-hoc"
-    lm._transformer_only(cfg)
     Bsz, S = tokens.shape
     x = lm._embed(params, tokens, cfg)
     positions = torch.arange(S, device=x.device)[None, :]
@@ -58,10 +57,17 @@ def prefill_dense(params, tokens, cfg: ModelConfig, max_len: int
 
 def prefill_recurrent(params, tokens, cfg: ModelConfig, max_len: int
                       ) -> Tuple[torch.Tensor, Dict]:
-    """Prefill for rwkv: comes with the rwkv slice."""
-    raise NotImplementedError(
-        f"{cfg.name}: the recurrent prefill is not ported yet (ROADMAP "
-        f"Queue 1 item 5d)")
+    """Prefill for rwkv: the chunked forward, carrying each layer's
+    state out.  tokens (B, S) -> (next-token logits (B, Vp) f32, decode
+    state at S); `max_len` is unused (the state's size does not grow)."""
+    assert cfg.arch_class == "rwkv"
+    x, state = lm.rwkv_layers(params, lm._embed(params, tokens, cfg), cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = matmul_f32(x[:, -1, :], params["unembed"])
+    logits = logits * _scalar(cfg.logit_scale, torch.float32)
+    state["length"] = torch.tensor(tokens.shape[1], dtype=torch.int32,
+                                   device=x.device)
+    return logits, state
 
 
 def prefill(params, tokens, cfg: ModelConfig, max_len: int):

@@ -1541,3 +1541,95 @@ def test_encdec_graphed_decode_step_equals_the_plain_step(cuda):
         assert torch.equal(got, want)
         assert all(torch.equal(s_graph[k], v) for k, v in s_plain.items())
     assert torch.equal(s_graph["cross_k"], cross)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6: the WKV at full width and the decoder at smoke size, the card
+# against the CPU
+# ---------------------------------------------------------------------------
+
+# the card's f32 sums run in another order than the CPU's, and a bf16
+# projection (r, k, v) may round a unit apart: states and carried tokens
+# within four bf16 units of their largest magnitude
+RWKV_STATE_TOL = 2.0 ** -6
+
+
+def _rwkv_states_close(got, want):
+    for k in ("s", "x_att", "x_ffn"):
+        g, w = got[k].float().cpu(), want[k].float()
+        tol = RWKV_STATE_TOL * float(w.abs().max())
+        assert float((g - w).abs().max()) <= tol, (k, float(
+            (g - w).abs().max()), tol)
+    assert int(got["length"]) == int(want["length"])
+
+
+@pytest.mark.parametrize("chunked", [False, True], ids=["scan", "chunked"])
+def test_rwkv_wkv6_on_the_card_equals_the_cpu(cuda, chunked):
+    """rwkv6-3b's heads (40 of 64) over 128 tokens from a nonzero state,
+    decays of an initialised model (exp(-exp(z)), z of spread 0.11):
+    outputs and final state within 2^-14 of their largest value (the
+    CPU tests hold the CPU's to the reference at 2^-16 and 2^-20)."""
+    from repro_torch.models import ssm
+    g = torch.Generator().manual_seed(9)
+    r, k, v = (torch.randn(1, 128, 40, 64, generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(0.11 * torch.randn(1, 128, 40, 64,
+                                                generator=g)))
+    u = 0.3 * torch.randn(40, 64, generator=g)
+    s0 = torch.randn(1, 40, 64, 64, generator=g)
+    fn = ssm.wkv6_chunked if chunked else ssm.wkv6_scan
+    want = fn(r, k, v, w, u, s0)
+    got = fn(*(t.to(cuda) for t in (r, k, v, w, u, s0)))
+    for a, b in zip(got, want):
+        assert a.is_cuda and a.dtype == torch.float32
+        tol = 2.0 ** -14 * float(b.abs().max())
+        assert float((a.cpu() - b).abs().max()) <= tol
+
+
+def test_rwkv_forward_decode_and_prefill_on_the_card_equal_the_cpu(cuda):
+    """rwkv6-smoke: the forward's logits, those of 4 decode steps and of
+    an 8-token prefill within LM_ATOL with the top-1 rule; the decode and
+    prefill states within RWKV_STATE_TOL of their largest magnitude."""
+    from repro_torch.data.batches import make_batch
+    from repro_torch.serve.prefill import prefill
+    cfg, m, params = _lm("rwkv6-3b")
+    gp = _tree_to(params, cuda)
+    batch = make_batch(cfg, 2, 16, seed=4, device="cpu")
+    _close_logits(m.forward(gp, _tree_to(batch, cuda)),
+                  m.forward(params, batch), LM_ATOL)
+    s_cpu = m.init_decode_state(2, 16, device="cpu")
+    s_gpu = m.init_decode_state(2, 16, device=cuda)
+    for t in range(4):
+        tok = batch["tokens"][:, t]
+        want, s_cpu = m.decode_step(params, tok, s_cpu)
+        got, s_gpu = m.decode_step(gp, tok.to(cuda), s_gpu)
+        _close_logits(got, want, LM_ATOL)
+    _rwkv_states_close(s_gpu, s_cpu)
+    toks = batch["tokens"][:, :8]
+    want, p_cpu = prefill(params, toks, cfg, 16)
+    got, p_gpu = prefill(gp, toks.to(cuda), cfg, 16)
+    _close_logits(got, want, LM_ATOL)
+    _rwkv_states_close(p_gpu, p_cpu)
+
+
+def test_rwkv_graphed_decode_step_equals_the_plain_step(cuda):
+    """The batcher's CUDA graph of rwkv's `decode_step` (the WKV state and
+    carried tokens copied back into the graph's state) replays the plain
+    step's kernels: 5 steps at 4 slots, logits and state equal at
+    tolerance 0, from a fresh state and from a state handed in again."""
+    from repro_torch.launch.serve import GraphedDecodeStep
+    cfg, m, params = _lm("rwkv6-3b")
+    gp = _tree_to(params, cuda)
+    step = GraphedDecodeStep(m.decode_step)
+    s_plain = m.init_decode_state(4, 16, device=cuda)
+    s_graph = m.init_decode_state(4, 16, device=cuda)
+    toks = torch.arange(20, dtype=torch.int32, device=cuda).reshape(5, 4)
+    for t in range(5):
+        want, s_plain = m.decode_step(gp, toks[t], s_plain)
+        got, s_graph = step(gp, toks[t], s_graph)
+        assert torch.equal(got, want)
+        assert all(torch.equal(s_graph[k], v) for k, v in s_plain.items())
+    fresh = m.init_decode_state(4, 16, device=cuda)
+    got, _ = step(gp, toks[0], fresh)
+    want, _ = m.decode_step(gp, toks[0], fresh)
+    assert torch.equal(got, want)

@@ -56,7 +56,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.lowering.sharded, repro_torch.core.xla_f32, "
             "repro_torch.configs, repro_torch.models.registry, "
             "repro_torch.models.lm, repro_torch.models.moe, "
-            "repro_torch.models.encdec, "
+            "repro_torch.models.encdec, repro_torch.models.ssm, "
             "repro_torch.data.batches, "
             "repro_torch.serve.prefill, repro_torch.launch.serve, "
             "repro_torch.quant.autoquant, repro_torch.quant.range_lm, "
@@ -127,7 +127,7 @@ def test_the_lm_subpackages_are_checked():
         return {p.name for p in PORT_FILES if p.parent == port / sub}
     assert names("models") == {"__init__.py", "attention.py", "blocks.py",
                                "common.py", "encdec.py", "lm.py", "moe.py",
-                               "registry.py"}
+                               "registry.py", "ssm.py"}
     assert names("quant") == {"__init__.py", "autoquant.py", "calibrate.py",
                               "qtypes.py", "range_lm.py"}
     assert names("data") == {"__init__.py", "batches.py"}

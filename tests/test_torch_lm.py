@@ -143,12 +143,12 @@ def test_param_specs_equal_the_reference(arch, smoke):
                                   "paligemma-3b", "whisper-medium",
                                   "rwkv6-3b", "zamba2-2.7b"])
 def test_get_model_names_the_slice_that_ports_other_archs(arch):
-    """An arch whose class is still in `NOT_PORTED` (rwkv and hybrid)
-    raises naming its ROADMAP item (5d); the MoE, VLM and encoder-decoder
+    """An arch whose class is still in `NOT_PORTED` (the hybrid) raises
+    naming its ROADMAP item (5d); the MoE, VLM, encoder-decoder and rwkv
     archs (ported) build, their parameter specs the reference's."""
     cfg = configs.get_smoke_config(arch)
     if cfg.arch_class in L.NOT_PORTED:
-        assert arch in ("rwkv6-3b", "zamba2-2.7b")
+        assert arch == "zamba2-2.7b"
         item = re.escape(L.NOT_PORTED[cfg.arch_class])
         assert item.startswith("5d")
         with pytest.raises(NotImplementedError,
@@ -156,7 +156,8 @@ def test_get_model_names_the_slice_that_ports_other_archs(arch):
             get_model(cfg)
         return
     assert cfg.arch_class == {"paligemma-3b": "vlm",
-                              "whisper-medium": "encdec"}.get(arch, "moe")
+                              "whisper-medium": "encdec",
+                              "rwkv6-3b": "rwkv"}.get(arch, "moe")
     assert _specs(get_model(cfg).param_specs()) == \
         _ref_specs(ref_get_model(ref_configs.get_smoke_config(
             arch)).param_specs())
@@ -478,10 +479,16 @@ def test_prefill_continues_as_stepwise_decode(dense_model):
 
 
 def test_prefill_refuses_int8_and_recurrent_archs():
+    """int8 caches fail `prefill_dense`'s second assertion; the hybrid
+    (not ported) goes to `prefill_dense`, as in the reference, and fails
+    its first."""
     cfg = dataclasses.replace(configs.get_smoke_config("qwen3-4b"),
                               kv_cache_dtype="int8")
     with pytest.raises(AssertionError, match="int8"):
         prefill({}, torch.zeros((1, 4), dtype=torch.int32), cfg, 8)
-    with pytest.raises(NotImplementedError, match="5d"):
+    with pytest.raises(AssertionError):
+        ref_prefill({}, jnp.zeros((1, 4), jnp.int32),
+                    ref_configs.get_smoke_config("zamba2-2.7b"), 8)
+    with pytest.raises(AssertionError):
         prefill({}, torch.zeros((1, 4), dtype=torch.int32),
-                configs.get_smoke_config("rwkv6-3b"), 8)
+                configs.get_smoke_config("zamba2-2.7b"), 8)
